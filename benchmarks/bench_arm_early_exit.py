@@ -1,4 +1,4 @@
-"""Fleet-level early exit on the certified arm workload (VERDICT r4 #6).
+"""Fleet-level early exit on the certified arm workload.
 
 Per-instance early exit on the vmapped `ilqr_admm` path comes from
 JAX's vmap-of-while_loop semantics: the batching rule rewrites the

@@ -7,13 +7,13 @@ reports ~seconds too). Here the full boxDDP solve (box-QP backward pass
 inside the Riccati scan + clipped parallel line search) is vmapped over
 a fleet of perturbed initial states on one chip.
 
-Certificates (VERDICT r4 #1 — bench.py-grade):
+Certificates (bench.py-grade):
 - feasibility: max |u|/bound <= 1 asserted over the whole fleet;
 - f64 oracle: bounded L-BFGS-B polish (CPU x64 subprocess,
   benchmarks/_oracles.py) from each reported solution on a subsample —
   the polish must not find meaningfully lower cost (local-optimality
   certificate; the task is nonconvex so a global gate would be wrong);
-- readback-terminated timing windows (docs/LATENCY.md).
+- `block_until_ready` timing windows, median (`_certify.timed_rate`).
 
 Prints one JSON line. Run: python benchmarks/bench_boxddp.py [batch] [max_iter]
 """
@@ -84,7 +84,7 @@ def main(batch=256, max_iter=150, qp_iters=8, oracle_n=8):
     })
     gap_med, gap_max = gaps(orc["j_ours"], orc["j_star"])
 
-    # --- readback-terminated throughput ---------------------------------
+    # --- throughput (median of block_until_ready windows) ---------------
     rate, dt_win = timed_rate(lambda: solve(x0s)[1], batch, K=5, reps=3)
 
     out = {

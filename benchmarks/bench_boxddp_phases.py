@@ -93,7 +93,7 @@ def main():
     }
 
     for name, fn in phases.items():
-        v = float(fn(0.0))  # compile + warm readback
+        v = float(fn(0.0))  # compile + warm up
         t0 = time.perf_counter()
         v = float(fn(0.0))
         ms = (time.perf_counter() - t0) / K_CHAIN * 1e3

@@ -47,7 +47,7 @@ fns = {r: jax.jit(lambda x, u, r=r: solve(x, u, r))
        for r in ("chol", "parallel", "parallel_fast")}
 fns["parallel_fast-ls25"] = jax.jit(lambda x, u: solve(x, u, "parallel_fast", 25))
 fns["parallel-ls25"] = jax.jit(lambda x, u: solve(x, u, "parallel", 25))
-# warm compiles + readback channel
+# warm compiles
 for name, f in fns.items():
     t0 = time.perf_counter()
     c, it = f(x0c, u0)

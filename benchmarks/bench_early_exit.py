@@ -1,68 +1,51 @@
-"""Per-tile early exit on a mixed-difficulty fleet (VERDICT r3 #4).
+"""Per-tile early exit on a mixed-difficulty fleet.
 
-The fused Pallas ADMM kernel historically ran every instance for the
-full iteration schedule; heterogeneous fleets (MPC warm starts,
-multi-start sweeps) burn MXU passes on the converged majority while a
-few stragglers finish. `make_pallas_lqt_admm(stop_tol=...)` adds
-per-TILE early exit (the granularity the MXU works in): a grid tile
-stops its main-phase loop once every instance in it has max-abs primal
-residual below stop_tol; the bf16x6 polish tail still runs.
+`make_pallas_lqt_admm(stop_tol=...)` adds per-program early exit to the
+fused kernel: a batch tile stops once every instance in it has max-abs
+primal residual below stop_tol (checked every `check_every`
+iterations). Heterogeneous fleets (MPC warm starts, multi-start sweeps)
+otherwise run the converged majority for the full schedule while a few
+stragglers finish.
 
 This bench builds a mixed fleet — 7/8 of instances at the nominal x0
-spread, 1/8 at 10x the spread (the VERDICT scenario) — SORTS it by the
-|x0 - 0| difficulty proxy so stragglers share tiles, and compares
-throughput and solution quality of the fixed schedule vs early exit.
-Quality gate: identical feasibility (0 violation) and the early-exit
-converged fraction / residuals must match the fixed schedule's.
-
-Prints one JSON line.
+spread, 1/8 at 10x the spread — SORTS it by the |x0| difficulty proxy so
+stragglers share tiles, and compares throughput and solution quality of
+the fixed schedule vs early exit. Quality gate: identical feasibility
+(0 violation); the converged fractions are reported side by side.
+Runs on the GPU only. Prints one JSON line.
 """
 
 import json
 import os
 import sys
-import time
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache"),
-)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 
 
 def main():
-    from ilqr_admm_tpu.models.double_integrator import DoubleIntegrator
+    import jax
+    import jax.numpy as jnp
+
+    import bench
+    from benchmarks._certify import (
+        device_info, enable_compile_cache, median_iqr, timed_windows,
+    )
     from ilqr_admm_tpu.ops.pallas_admm import make_pallas_lqt_admm
-    from ilqr_admm_tpu.utils.cost_assembly import viapoint_cost
 
-    N = 100
+    enable_compile_cache()
+    dev = device_info(require="gpu")
+
     BATCH = 16384
-    TILE = 512
     ADMM_ITERS = 200  # generous cap: the easy 7/8 converge far sooner
-    RHO_U = 1e-1
+    A, B, cost = bench.lqt_box_problem(bench.N)
+    d = A.shape[-1]
 
-    plant = DoubleIntegrator(1, 2, dt=1.0 / N)
-    d, m = plant.x_dim, plant.u_dim
-    zs = jnp.stack([jnp.zeros(d), jnp.asarray([1.0, 0.0])]).astype(jnp.float32)
-    Qs = jnp.stack([jnp.zeros((d, d)), jnp.eye(d) * 1e3]).astype(jnp.float32)
-    seq = np.zeros(N, dtype=np.int32)
-    seq[-1] = 1
-    cost = viapoint_cost(zs, Qs, seq, 1e-2, m)
-    A, B = plant.AB(N)
-    A = A.astype(jnp.float32)
-    B = B.astype(jnp.float32)
-
-    kw = dict(u_lower=-5.0, u_upper=5.0, rho_u=RHO_U,
-              n_iters=ADMM_ITERS, batch_tile=TILE)
+    kw = dict(u_lower=-bench.U_BOUND, u_upper=bench.U_BOUND,
+              rho_u=bench.RHO_U, n_iters=ADMM_ITERS,
+              batch_tile=bench.BATCH_TILE)
     solve_fix = make_pallas_lqt_admm(A, B, cost, **kw)
-    # the exit test runs on a bf16x6 (floor-free) iterate at each check
-    # chunk; measured knee (TPU sweep): stop_tol 1e-4 max-abs keeps the
-    # converged fraction AT the fixed schedule's (0.9932 vs 0.9929)
-    # while 3e-4 costs 2.6pp and 3e-5 exits nothing
     solve_exit = make_pallas_lqt_admm(A, B, cost, stop_tol=1e-4, **kw)
 
     # mixed fleet: 7/8 nominal spread, 1/8 at 10x; sorted by |x0| so
@@ -76,42 +59,27 @@ def main():
 
     out_f = solve_fix(x0s)
     out_e = solve_exit(x0s)
-    jax.block_until_ready((out_f[1], out_e[1]))
+    jax.block_until_ready((out_f, out_e))
 
-    # quality gate: feasibility + matched residual profile
-    for tag, (x, u, _, zu) in (("fixed", out_f), ("early", out_e)):
-        viol = float(jnp.max(jnp.maximum(jnp.abs(zu) - 5.0, 0.0)))
+    for tag, (_, u, zu) in (("fixed", out_f), ("early", out_e)):
+        viol = float(jnp.max(jnp.maximum(jnp.abs(zu) - bench.U_BOUND, 0.0)))
         assert viol == 0.0, (tag, viol)
-    r_f = np.asarray(jnp.linalg.norm(out_f[1] - out_f[3], axis=-1))
-    r_e = np.asarray(jnp.linalg.norm(out_e[1] - out_e[3], axis=-1))
-    conv_f = float((r_f < 1e-4).mean())
-    conv_e = float((r_e < 1e-4).mean())
+    r_f = np.asarray(jnp.linalg.norm(out_f[1] - out_f[2], axis=-1))
+    r_e = np.asarray(jnp.linalg.norm(out_e[1] - out_e[2], axis=-1))
     du = float(jnp.max(jnp.abs(out_f[1] - out_e[1])))
 
-    def rate(solve):
-        K = 30
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for _ in range(K):
-                u_last = solve(x0s)[1]
-            _ = float(u_last[0, 0])
-            times.append((time.perf_counter() - t0) / K)
-        return BATCH * ADMM_ITERS / min(times), min(times)
-
-    rate_f, dt_f = rate(solve_fix)
-    rate_e, dt_e = rate(solve_exit)
-
+    t_f = median_iqr(timed_windows(lambda: solve_fix(x0s), 10, 5))
+    t_e = median_iqr(timed_windows(lambda: solve_exit(x0s), 10, 5))
     print(json.dumps({
         "metric": "pallas_early_exit_speedup_mixed_fleet",
-        "value": round(dt_f / dt_e, 3),
+        "value": t_f[0] / t_e[0],
         "unit": "x (fixed-schedule time / early-exit time, 16k mixed fleet)",
-        "fixed_ms": round(dt_f * 1e3, 2),
-        "early_ms": round(dt_e * 1e3, 2),
-        "sched_iters_per_s_fixed": round(rate_f, 1),
-        "converged_frac_fixed": round(conv_f, 4),
-        "converged_frac_early": round(conv_e, 4),
-        "max_u_diff": float(f"{du:.3g}"),
+        "fixed_ms_median_iqr": [t * 1e3 for t in t_f],
+        "early_ms_median_iqr": [t * 1e3 for t in t_e],
+        "converged_frac_fixed": float((r_f < 1e-4).mean()),
+        "converged_frac_early": float((r_e < 1e-4).mean()),
+        "max_u_diff": du,
+        **dev,
     }))
 
 

@@ -2,15 +2,12 @@
 
 The certified headline (bench.py) measures iterations/s at a FIXED
 schedule; this benchmark measures the other serving quantity — wall
-clock for a whole fleet to reach a residual tolerance. On THIS default
-config (TPU f32, serving tolerance 5e-4) the measured answer is a
-documented NEGATIVE result for Anderson: plain early-stop converges in
-~25 iterations while near-converged instances' secant differences drown
-in the TPU matmul noise floor, so the Anderson fleet rides the
-iteration cap (RESULTS.md r4 fleet-variant section). The win case is
-tight-tolerance x64 fleets — run with JAX_ENABLE_X64=1 on CPU (or see
-tests/test_batched_admm.py::test_batched_anderson_matches_plain):
-7.8x wall-clock at tol 1e-7 with identical solutions.
+clock for a whole fleet to reach a residual tolerance (default config:
+f32, serving tolerance 5e-4). Anderson pays off when plain ADMM needs
+many iterations — tight-tolerance x64 fleets (JAX_ENABLE_X64=1, or see
+tests/test_batched_admm.py::test_batched_anderson_matches_plain); at
+f32 serving tolerances the secant differences of near-converged
+instances approach the matmul noise floor. On the GPU: not measured.
 
 Run: python benchmarks/bench_fleet_anderson.py [batch]
 """

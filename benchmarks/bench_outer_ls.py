@@ -7,7 +7,7 @@ reference-semantics 'inner' mode (rollouts every inner iteration,
 (BASELINE.md: reference cost 1.903 in 17.4 s).
 
 Run:  python benchmarks/bench_outer_ls.py --backend cpu   (f64 quality)
-      python benchmarks/bench_outer_ls.py --backend tpu   (f32 timing)
+      python benchmarks/bench_outer_ls.py --backend gpu   (f32 timing)
 """
 
 import argparse
@@ -18,7 +18,7 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 p = argparse.ArgumentParser()
-p.add_argument("--backend", default="cpu", choices=["cpu", "tpu"])
+p.add_argument("--backend", default="cpu", choices=["cpu", "gpu"])
 p.add_argument("--variants", default="ABCD", help="subset of ABCD to run")
 args = p.parse_args()
 

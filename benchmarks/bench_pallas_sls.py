@@ -8,19 +8,16 @@ Four paths on the chance-constrained control-bounds scenario fleet
 - consensus: the fused kernel with the inlined consensus loop;
 - diamond: the fused kernel with the EXACT closed-form row projection
   onto {|du| + psi*sigma*|phi| <= bound} (the same row set as the
-  two-SOC intersection; `ops/pallas_sls.py::_diamond_project_slabs`)
-  and the packed (p1*tile x Nm)x(Nm x Nm) x-update GEMM — VERDICT r4 #3;
+  two-SOC intersection; `ops/pallas_sls.py::_diamond_project_slabs`);
 - diamond_ee: diamond + per-tile early exit on a difficulty-sorted
   fleet (stop_tol=3e-3 — the serving mode and the headline).
 
-Each path runs in its OWN SUBPROCESS (one TPU client at a time,
-sequential): measured r5, running the consensus kernel before the
-diamond kernel in one process suppressed the diamond timing ~2x
-(107k -> 56k synth/s; clean-process runs are stable at 102-113k).
-Within a path: certified configuration (rho_u = 1.0, measured
-well-scaled — see bench_sls_fleet.py), f64 QP oracle gates (scipy
-trust-constr, benchmarks/_oracles.py), exact diamond-projection primal
-residual, readback-terminated windows.
+Each path runs in its OWN SUBPROCESS, one after another: the parent
+stays off JAX, so one process at a time holds the card. Within a path:
+certified configuration (rho_u = 1.0, well-scaled — see
+bench_sls_fleet.py), f64 QP oracle gates (scipy trust-constr,
+benchmarks/_oracles.py), exact diamond-projection primal residual,
+`block_until_ready` timing windows (median).
 
 Prints one JSON line (the diamond_ee path is the headline).
 Run one path directly: python benchmarks/bench_pallas_sls.py <path>.
@@ -40,15 +37,17 @@ PATHS = ("xla", "consensus", "diamond", "diamond_ee")
 
 def run_path(path, batch=1024, n_iters=200, n_cons=30, oracle_n=8):
     """Build + certify + time ONE path; returns its result dict."""
-    os.environ.setdefault(
-        "JAX_COMPILATION_CACHE_DIR", os.path.join(REPO, ".jax_cache")
-    )
     import numpy as np
     import jax
     import jax.numpy as jnp
     from scipy.stats import norm
 
-    from benchmarks._certify import gaps, run_oracle, timed_rate
+    from benchmarks._certify import (
+        device_info, enable_compile_cache, gaps, run_oracle, timed_rate,
+    )
+
+    enable_compile_cache()
+    device_info(require="gpu")
     from benchmarks._oracles import _project_diamond
     from ilqr_admm_tpu.models.double_integrator import DoubleIntegrator
     from ilqr_admm_tpu.utils.cost_assembly import viapoint_cost
@@ -105,26 +104,23 @@ def run_path(path, batch=1024, n_iters=200, n_cons=30, oracle_n=8):
         solve = make_pallas_sls_admm(
             A, B, cost, [A_hi, A_lo], [b_fixed, b_fixed],
             [b_bound, b_bound], rho_u=rho_u, robust_dim=1,
-            n_iters=n_iters, n_cons_iters=n_cons, cons_rho=cons_rho,
-            batch_tile=256)
+            n_iters=n_iters, n_cons_iters=n_cons, cons_rho=cons_rho)
     elif path == "diamond":
         from ilqr_admm_tpu.ops.pallas_sls import make_pallas_sls_admm
 
         solve = make_pallas_sls_admm(
             A, B, cost, (), (), (),
-            rho_u=rho_u, robust_dim=1, n_iters=n_iters, batch_tile=256,
+            rho_u=rho_u, robust_dim=1, n_iters=n_iters,
             z_update="diamond", diamond_w=(1.0, c_coef))
     elif path == "diamond_ee":
         from ilqr_admm_tpu.ops.pallas_sls import make_pallas_sls_admm
 
         # serving mode: per-tile early exit on a difficulty-SORTED fleet
-        # (easy tiles stop as soon as their residual clears stop_tol);
-        # measured r5: 1.34x the fixed schedule at BETTER oracle gaps
-        # (the exited tiles are already at the residual floor)
+        # (easy tiles stop as soon as their residual clears stop_tol)
         bounds = jnp.asarray(np.sort(np.asarray(bounds)), f32)
         solve = make_pallas_sls_admm(
             A, B, cost, (), (), (),
-            rho_u=rho_u, robust_dim=1, n_iters=n_iters, batch_tile=256,
+            rho_u=rho_u, robust_dim=1, n_iters=n_iters,
             z_update="diamond", diamond_w=(1.0, c_coef),
             stop_tol=3e-3, check_every=16)
     else:
@@ -150,7 +146,7 @@ def run_path(path, batch=1024, n_iters=200, n_cons=30, oracle_n=8):
         "U": U_np[idx], "c": c_coef,
     })
     gap_med, gap_max = gaps(orc["j_z"], orc["j_star"])
-    rate, _ = timed_rate(lambda: solve(bounds)[0], batch, K=5, reps=3)
+    rate, _ = timed_rate(lambda: solve(bounds), batch, K=5, reps=5)
     return {
         "rate": round(rate, 1),
         "converged_frac": round(float(np.mean(prim < 5e-3)), 4),
@@ -191,7 +187,7 @@ def main():
         "paths": results,
         "oracle": "f64 trust-constr QP, 8 instances/path, fresh process/path",
     }
-    for r in (rd, ree):
+    for r in (results["consensus"], rd, ree):
         assert r["converged_frac"] >= 0.99, r
         assert r["cost_gap_median"] <= 1e-4, r
         assert r["cost_gap_max"] <= 1e-3, r

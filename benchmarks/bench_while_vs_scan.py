@@ -1,11 +1,11 @@
 """Probe: per-iteration cost of lax.while_loop vs lax.scan on the
 current backend.
 
-On a locally-attached TPU both run device-side and differ only by
-pipelining; through a remote-dispatch tunnel a while_loop may pay a
-per-iteration coordination cost that a fixed-trip scan does not. The
-body is identical (one small GEMM + elementwise), trip count varied, so
-slope = per-iteration cost.
+On the GPU, XLA evaluates a while_loop's predicate on the host each
+iteration (a device-to-host copy) unless it can turn the loop into a
+fixed-trip one; a scan has a static trip count. The body is identical
+(one small GEMM + elementwise), trip count varied, so slope =
+per-iteration cost.
 
 Run: python benchmarks/bench_while_vs_scan.py
 """
@@ -57,24 +57,16 @@ def make_scan(n):
 
 
 def measure(f, x):
-    # readback-terminated timing: enqueue + wait for the actual result
-    # bytes (block_until_ready alone can return before completion here)
-    o = f(x)
-    _ = float(o[0, 0])  # compile + warm
+    jax.block_until_ready(f(x))  # compile + warm
     ts = []
     for _ in range(3):
         t0 = time.perf_counter()
-        o = f(x)
-        _ = float(o[0, 0])
+        jax.block_until_ready(f(x))
         ts.append(time.perf_counter() - t0)
     return min(ts) * 1e3
 
 
 x = jnp.full((D, D), 0.01, jnp.float32)
-# warm the transfer channel once (first D2H in a process is very slow)
-t0 = time.perf_counter()
-_ = float(jax.jit(lambda v: v + 1.0)(x)[0, 0])
-print(f"channel warmup: {time.perf_counter() - t0:.1f} s", flush=True)
 
 for n in (100, 400, 1600):
     tw = measure(make_while(n), x)

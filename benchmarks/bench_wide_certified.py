@@ -1,46 +1,43 @@
 """Certified wide-problem fleet bench: Nm = 512 batched LQT-ADMM.
 
-The headline bench (bench.py, Nm = 200) is problem-bound, not
-kernel-bound: the MFU-vs-width study (RESULTS.md r3) measured 62.8%
-issued MFU at Nm = 512 but only as a study, without the convergence /
-feasibility / oracle-gap certificates. This row promotes a wide
-workload to a certified metric (VERDICT r3 #5): a d=8 / m=4 double
-integrator at N=128 (so the in-loop GEMM is 512x512), 8192 instances,
-with the SAME certificate machinery as bench.py — feasibility == 0,
-converged_frac >= 0.99 at the reference primal tolerance, and max
-f64 L-BFGS-B oracle cost gap <= 1e-4 on a subsample.
+A d=8 / m=4 double integrator at N=128 (so the in-loop response GEMM is
+512x512), 8192 instances, with the same certificate machinery as
+bench.py — feasibility == 0, converged_frac >= 0.99 at the reference
+primal tolerance, and max f64 L-BFGS-B oracle cost gap <= 1e-4 on a
+subsample.
 
-Prints one JSON line (separate from bench.py's driver-facing line;
-recorded in RESULTS.md).
+The path is chosen by width (`ops/pallas_admm.py::kernel_fits`): the
+fused kernel keeps the (Nm x Nm) operator on chip only up to a padded
+Nm of 128, so this fleet runs the XLA GEMM path (`solvers/batched.py`).
+Runs on the GPU only. Prints one JSON line.
 """
 
 import json
 import os
 import sys
-import time
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache"),
-)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 
 
 def main():
-    from bench import _oracle_cost_gap, _peak_bf16_flops
+    import jax.numpy as jnp
+
+    import bench
+    from benchmarks._certify import (
+        device_info, enable_compile_cache, median_iqr, timed_windows,
+    )
     from ilqr_admm_tpu.models.double_integrator import DoubleIntegrator
-    from ilqr_admm_tpu.projections import project_bound
-    from ilqr_admm_tpu.solvers.batched import make_batched_lqt_admm
+    from ilqr_admm_tpu.ops.pallas_admm import kernel_fits
     from ilqr_admm_tpu.utils.cost_assembly import viapoint_cost
+
+    enable_compile_cache()
+    dev = device_info(require="gpu")
 
     N = 128
     BATCH = 8192
     ADMM_ITERS = 100
-    RHO_U = 1e-1
 
     # 4 independent positions, 2 derivatives each: d = 8, m = 4 -> the
     # in-loop response GEMM is (N*m)^2 = 512^2
@@ -57,93 +54,23 @@ def main():
     A = A.astype(jnp.float32)
     B = B.astype(jnp.float32)
 
-    try:
-        from ilqr_admm_tpu.ops.pallas_admm import make_pallas_lqt_admm
+    path = "pallas" if kernel_fits(N * m) else "xla"
+    solve = bench.make_solver(path, A, B, cost, n_iters=ADMM_ITERS)
+    x0s = bench.initial_states(BATCH, d)
+    u, z_u = solve(x0s)
+    cert = bench.certify(A, B, cost, x0s, u, z_u, oracle_n=32)
 
-        solve_p = make_pallas_lqt_admm(
-            A, B, cost, u_lower=-5.0, u_upper=5.0,
-            rho_u=RHO_U, n_iters=ADMM_ITERS, batch_tile=256,
-            # batch_tile 1024 exceeds VMEM at Nm=512/Nd=1024 (measured
-            # compile failure); 256 fits with double buffering
-            refresh_every=8,  # wide regime: the 512x512 GEMM dominates,
-            # so the single-pass delta updates pay off (RESULTS.md r3)
-        )
-        jax.block_until_ready(solve_p(jnp.zeros((256, d), jnp.float32)))
-        solve = lambda x0s: solve_p(x0s)[:2]
-        solve_zu = lambda x0s: solve_p(x0s)[3]
-        path = "pallas"
-    except Exception:
-        solve = make_batched_lqt_admm(
-            A, B, cost,
-            project_u=lambda u: project_bound(u, -5.0, 5.0),
-            rho_u=RHO_U, n_iters=ADMM_ITERS,
-        )
-        solve_zu = lambda x0s: jnp.clip(solve(x0s)[1], -5.0, 5.0)
-        path = "xla"
-
-    rng = np.random.default_rng(0)
-    x0s = jnp.asarray(rng.normal(0.0, 0.1, size=(BATCH, d)), jnp.float32)
-
-    x, u = solve(x0s)
-    jax.block_until_ready(u)
-    assert bool(jnp.all(jnp.isfinite(u)))
-
-    z_u = solve_zu(x0s)
-    max_violation = float(jnp.max(jnp.maximum(jnp.abs(z_u) - 5.0, 0.0)))
-    prim = jnp.linalg.norm(u - z_u, axis=-1)
-    converged_frac = float(jnp.mean((prim < 1e-4).astype(jnp.float32)))
-    cost_gap_med, cost_gap_max = _oracle_cost_gap(
-        A, B, cost, x0s[:32], np.asarray(z_u[:32], np.float64)
-    )
-
-    assert max_violation == 0.0, f"infeasible z-iterate: {max_violation}"
-    assert cost_gap_med <= 1e-4, f"median cost gap {cost_gap_med} > 1e-4"
-    assert cost_gap_max <= 1e-4, f"max cost gap {cost_gap_max} > 1e-4"
-    assert converged_frac >= 0.99, f"converged_frac {converged_frac} < 0.99"
-
-    K = 50
-    reps = 3
-    # untimed warmup window first, then MEDIAN-of-windows (bench.py
-    # number hygiene: the first pipelined window runs cold, and best-of
-    # hides run-to-run drift)
-    for _ in range(K):
-        u_last = solve(x0s)[1]
-    _ = float(u_last[0, 0])
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        for _ in range(K):
-            u_last = solve(x0s)[1]
-        _ = float(u_last[0, 0])
-        times.append((time.perf_counter() - t0) / K)
-    rates = np.sort(BATCH * ADMM_ITERS / np.asarray(times))
-    iters_per_s = float(np.median(rates))
-
-    Nm = N * m
-    useful_flops_per_iter = 2.0 * Nm * Nm
-    useful_tflops = iters_per_s * useful_flops_per_iter / 1e12
-    peak, device_kind = _peak_bf16_flops()
-    # refresh_every=8: 1 single-pass delta GEMM per iteration + a bf16x3
-    # refresh every 8 -> average issued passes/iter = 1 + 2/8
-    issued_factor = 1.0 + 2.0 / 8.0
-    out = {
-        "metric": "wide_admm_iterations_per_s_per_chip_Nm512",
-        "value": round(iters_per_s, 1),
+    med, q1, q3 = median_iqr(timed_windows(lambda: solve(x0s), 10, 5))
+    print(json.dumps({
+        "metric": "wide_admm_iterations_per_s_Nm512",
+        "value": BATCH * ADMM_ITERS / med,
         "unit": "ADMM iterations/s (Nm=512, d=8, m=4, batch 8192)",
         "path": path,
-        "device_kind": device_kind,
-        "useful_tflops": round(useful_tflops, 2),
-        "converged_frac": round(converged_frac, 4),
-        "max_violation": max_violation,
-        "cost_gap_median": float(f"{cost_gap_med:.3g}"),
-        "cost_gap_max": float(f"{cost_gap_max:.3g}"),
-    }
-    if peak:
-        out["mfu_useful"] = round(useful_tflops * 1e12 / peak, 4)
-        out["mfu_issued"] = round(
-            issued_factor * useful_tflops * 1e12 / peak, 4
-        )
-    print(json.dumps(out))
+        "ms_per_solve_median": med * 1e3,
+        "ms_per_solve_iqr": [q1 * 1e3, q3 * 1e3],
+        **cert,
+        **dev,
+    }))
 
 
 if __name__ == "__main__":

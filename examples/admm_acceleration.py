@@ -9,10 +9,10 @@ same constrained optimum as plain ADMM; they differ in how much of the
 slow linear consensus tail they remove. On the control-bounds LQT with
 a deliberately 1000x-too-small penalty (the worst case for plain ADMM's
 linear rate) the gap is dramatic: plain and Nesterov do not converge
-within a 2000-iteration cap on TPU f32 while Anderson finishes in ~350
-(under f64 the tail floor drops away: Anderson 21, Nesterov ~650,
-plain 20k+), and on the well-scaled problem Anderson still halves the
-count (6 vs 14).
+within a 2000-iteration cap in f32 while Anderson finishes in a few
+hundred (under f64 the tail floor drops away: Anderson 21, Nesterov
+~650, plain 20k+), and on the well-scaled problem Anderson still halves
+the count (6 vs 14).
 
 Run: python examples/admm_acceleration.py
 """

@@ -55,7 +55,7 @@ def main():
           f"of bound, status {SolveStatus(int(st_b.status)).name}")
 
     # r4: the exactness-certified time-parallel backward — same optimum,
-    # O(log N) backward depth (10x the row on TPU at N=500)
+    # O(log N) backward depth
     st_p = boxddp_solve(
         car.step, car.get_AB, cost.get_Cs, cost,
         boxddp_init(car.step, cost, x0, u0, lo, hi),

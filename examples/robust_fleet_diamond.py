@@ -12,8 +12,8 @@ share dynamics/cost but differ in the per-scenario bound is solved with
 
 through the same batched solver (`solvers/batched_sls.py`); both must
 agree, and the diamond path needs no inner projection loop at all. On
-TPU the fused Pallas kernel (`ops/pallas_sls.py`, z_update='diamond')
-runs this fleet at ~103k syntheses/s certified (benchmarks/RESULTS.md).
+the GPU the fused kernel (`ops/pallas_sls.py`, z_update='diamond') runs
+this fleet (chip_smoke.py P2).
 
 Run: python examples/robust_fleet_diamond.py
 """

@@ -1,17 +1,17 @@
-"""ilqr_admm_tpu — TPU-native constrained robust optimal control.
+"""ilqr_admm_tpu — accelerator-native constrained robust optimal control.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference `isls` library (chenjianxing1/iLQR-ADMM): finite-horizon
 LQT / iLQR solvers, ADMM constraint splitting with a projection-operator
 library, and robust System Level Synthesis (SLS) with chance constraints —
-redesigned TPU-first:
+redesigned for batched accelerator execution:
 
 - Riccati backward passes and rollouts are `lax.scan` recursions (O(N)
   memory) instead of Python loops (reference `sls.py:122-162`,
   `isls.py:261-334`).
 - The Woodbury rank-downdate inverse cascade (reference `base.py:32-53`)
   is replaced by a single Cholesky of the time-reversed lifted normal
-  matrix + batched masked triangular solves on the MXU
+  matrix + batched masked triangular solves
   (`ops/sls_synthesis.py`).
 - Line search, Monte-Carlo validation and multi-start solves are
   `vmap`-batched; instance batches shard over a `jax.sharding.Mesh`

@@ -641,8 +641,8 @@ class iSLS(_Base):
         (no penalty tuning; every iterate exactly feasible). See
         `solvers/boxddp.py`. riccati='parallel' selects the
         exactness-certified time-parallel backward (O(log N) depth,
-        warm-started active sets — the long-horizon option; N=500 car:
-        105 ms vs 1091 ms sequential at the same optimum). Updates the
+        warm-started active sets — the long-horizon option, at the same
+        optimum as the sequential pass). Updates the
         nominal values in place.
         """
         from ilqr_admm_tpu.problem import ILQRConfig

@@ -31,30 +31,18 @@ class CarFrontWheel:
         self.dt = dt
         self.dist = dist
 
-    def step(self, s: jax.Array, u: jax.Array, _asin=jnp.arcsin) -> jax.Array:
-        # _asin: Mosaic (Pallas TPU) has no asin lowering; kernel callers
-        # substitute `ops.pallas_rollout.asin_newton` (1-2 ulp equal)
+    def step(self, s: jax.Array, u: jax.Array) -> jax.Array:
         dt, dist = self.dt, self.dist
         w, a = u[0], u[1]
         x, y, o, v = s[0], s[1], s[2], s[3]
         f = dt * v  # front-wheel rolling distance
         ins = dist**2 - (jnp.sin(w) * f) ** 2
         b = f * jnp.cos(w) + dist - jnp.sqrt(ins)  # back-wheel rolling distance
-        do = _asin(jnp.sin(w) * f / dist)
+        do = jnp.arcsin(jnp.sin(w) * f / dist)
         return jnp.stack([x + b * jnp.cos(o), y + b * jnp.sin(o), o + do, v + a * dt])
 
     def __call__(self, s, u):
         return self.step(s, u)
-
-    def step_cols(self, s: jax.Array, u: jax.Array, _asin=jnp.arcsin) -> jax.Array:
-        """`step` over candidate *columns*: s (4, A), u (2, A) -> (4, A).
-
-        The lane-parallel contract `ops/pallas_rollout.py` needs. The
-        scalar `step` is written in broadcasting ops, so it already maps
-        component rows across the trailing candidate axis — results are
-        bit-identical per column. Inside a Pallas kernel pass
-        `_asin=ops.pallas_rollout.asin_newton` (Mosaic lacks asin)."""
-        return self.step(s, u, _asin=_asin)
 
     def get_AB(self, xs: jax.Array, us: jax.Array):
         """(A, B) Jacobians along a trajectory: (N, 4, 4), (N, 4, 2)."""

@@ -12,7 +12,7 @@ The reference handles control bounds only through ADMM splitting
 dynamic programming"): per-stage box-QP in the backward pass, feedback
 restricted to the free subspace, clipped forward rollouts.
 
-TPU notes: every iteration is a masked m x m solve + an m-point
+Accelerator notes: every iteration is a masked m x m solve + an m-point
 backtracking grid — all fixed shape; no data-dependent control flow.
 """
 
@@ -38,8 +38,8 @@ def _masked_solve(H, free, rhs):
     decouple to the identity — one fixed-shape solve regardless of the
     active set (no gather/scatter, vmap/scan friendly). For m <= 4 the
     solve uses the closed-form adjugate inverse (`inv_small`) — no LU in
-    the inner scan loop, ~3x faster on TPU (same trick as the parallel
-    Riccati's fast_inverse path).
+    the inner scan loop (same trick as the parallel Riccati's
+    fast_inverse path).
     """
     from ilqr_admm_tpu.ops.parallel_riccati import inv_small
 
@@ -103,7 +103,7 @@ def boxqp_enum(H, g, lb, ub, eps: float = 1e-7):
     (free solution inside the box; clamped gradients pointing outward);
     the strictly convex objective makes the KKT-consistent case the
     unique optimum, selected branchlessly by masked argmin. All cases
-    evaluate as ONE batched step — on TPU this beats projected Newton's
+    evaluate as ONE batched step instead of projected Newton's
     sequential iteration chain for small m (the boxDDP stage regime),
     and the answer is exact rather than iteratively approximate.
 
@@ -111,7 +111,7 @@ def boxqp_enum(H, g, lb, ub, eps: float = 1e-7):
 
     `eps` is scale-relative: the KKT/box tests use
     `eps * (1 + max|g| + max|H|)` so f32 roundoff on ill-scaled Quu
-    (the 'auto' m<=3 path of ilqr_backward_box runs this in f32 on TPU)
+    (the 'auto' m<=3 path of ilqr_backward_box runs this in f32)
     cannot reject every combo. If roundoff still rejects all 3^m cases,
     the fallback is the best *clipped* candidate by objective value —
     never a silent combo-0 (all-free) pick.

@@ -56,8 +56,8 @@ def ilqr_backward_box(
     qp_method: 'enum' solves each stage QP exactly by 3^m active-set
     enumeration in one batched step (`ops/boxqp.py::boxqp_enum`);
     'newton' runs `qp_iters` projected-Newton iterations; 'auto'
-    (default) picks 'enum' for m <= 3 — on TPU the sequential Newton
-    chain is the stage latency, and enumeration replaces it with one
+    (default) picks 'enum' for m <= 3 — the sequential Newton chain
+    is the stage latency, and enumeration replaces it with one
     vectorized solve batch.
     """
     if qp_method not in ("auto", "enum", "newton"):
@@ -243,8 +243,8 @@ def ilqr_backward_box_parallel(
         magnitudes on free dims) — the merit the vetted multi-exchange
         loop monitors; it is zero exactly at the active-set fixed point.
         """
-        # broadcast-multiply-sum matmuls: tiny batched HIGHEST dot_generals
-        # lower pathologically on TPU (see parallel_riccati._bmm)
+        # broadcast-multiply-sum matmuls for the tiny batched products
+        # (see parallel_riccati._bmm)
         bmm = lambda a, b: jnp.sum(a[..., :, :, None] * b[..., None, :, :], -2)
         Jn, etan = J[1:], eta[1:]  # V_{t+1} for t = 0..N-2
         BT = jnp.swapaxes(B[:-1], -1, -2)
@@ -401,9 +401,8 @@ def rollout_closed_loop_clipped(
 
     def step(x, inp):
         Kt, kt, xnt, unt = inp
-        # expanded matvec: exact f32 on the VPU (same rationale as
-        # rollout_closed_loop — TPU dot_general is multi-pass bf16 even
-        # at HIGHEST, and K rows reach 1e3-scale on stiff problems)
+        # expanded matvec: exact elementwise f32 (same rationale as
+        # rollout_closed_loop — K rows reach 1e3-scale on stiff problems)
         u = jnp.clip(
             unt + kt + jnp.sum(Kt * (x - xnt)[None, :], axis=-1), lo, hi
         )

@@ -5,7 +5,7 @@ with an O(N) backward column construction (`base.py:98-119`). Here:
 
 - `sw_x0`, `su_apply`, `su_t_apply` are *matrix-free* applications of the
   lifted operators as `lax.scan` rollouts / adjoint recursions — O(N d^2)
-  and O(N) memory, the preferred TPU path.
+  and O(N) memory, the preferred path.
 - `build_Sw` / `build_Su` materialize the dense operators (needed where
   the matrix itself is the object, e.g. SLS response-map synthesis); they
   are forward row recursions expressed as a single scan of small batched
@@ -149,8 +149,7 @@ def build_Su(A: jax.Array, B: jax.Array, block_size: int | None = None) -> jax.A
     """Dense lifted Su: (N*x, N*u); block (i, j) = A_{i-1}···A_{j+1} B_j.
 
     For long horizons the N-step sequential row recursion is scan-latency
-    bound (~0.94 ms at N=500 on TPU — and e.g. ilqr_admm rebuilds Su
-    every outer iteration). The two-level blocked construction runs
+    bound (and e.g. ilqr_admm rebuilds Su every outer iteration). The two-level blocked construction runs
     L + N/L sequential steps instead of N:
 
     - level 1 (one L-step scan, BATCHED over the N/L blocks): per block,
@@ -168,9 +167,9 @@ def build_Su(A: jax.Array, B: jax.Array, block_size: int | None = None) -> jax.A
     N, d, _ = A.shape
     m = B.shape[-1]
     L = _pick_block(N) if block_size is None else block_size
-    # auto-blocking only past N=256: at N=100 the blocked build measured
-    # slightly SLOWER than the plain scan (0.57-0.62 vs 0.52 ms on TPU),
-    # at N=500 it is 1.26x faster (0.74 vs 0.94 ms)
+    # auto-blocking only past N=256: on short horizons the blocked
+    # build's two scans cost more than they save (GPU crossover: not
+    # measured)
     if L <= 1 or N % L != 0 or (block_size is None and N <= 256) or N <= 64:
         return _build_Su_seq(A, B)
     P = N // L

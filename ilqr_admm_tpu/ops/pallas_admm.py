@@ -1,22 +1,25 @@
-"""Fused Pallas kernel: the full box-constrained LQT-ADMM loop in VMEM.
+"""Fused Pallas (Triton) kernel: the full control-bounds LQT-ADMM loop.
 
-The XLA GEMM formulation (`solvers/batched.py`) streams every iterate
-array through HBM each ADMM iteration and pays 6-pass (HIGHEST) f32
-matmuls. This kernel runs the *entire* iteration loop inside one
-`pallas_call`:
+The XLA GEMM formulation (`solvers/batched.py`) runs every ADMM
+iteration as separate kernels that read and write every iterate from
+device memory. This kernel runs the *entire* iteration loop inside one
+`pallas_call` per batch tile:
 
-- a batch tile's iterates (z, λ, x, u) stay resident in VMEM across all
-  iterations (HBM traffic collapses to one read + one write);
-- the per-iteration GEMMs run as manual **bf16x3** products on the MXU
-  (split a = a_hi + a_lo in bf16, keep the three significant cross
-  terms): ~f32 accuracy at 3 MXU passes instead of HIGHEST's 6, with the
-  loop-invariant operand splits (l_inv, Su, penalties) precomputed once;
-- projections/dual updates fuse on the VPU.
+- a tile's iterates (z, λ, u) stay in registers across all iterations
+  (device-memory traffic collapses to one read and one write);
+- the (Nm × Nm) response operator W is loaded once per program and
+  stays on chip for the whole loop;
+- the projection and dual update fuse into the loop.
 
-Specialization: box projections on u and (optionally) x, expressed as
-(N·dim,) lower/upper vectors (±inf disables a coordinate) — the dominant
-constraint class of the benchmark suite. General projections use the XLA
-path (`solvers/batched.py`).
+Specialization: a box projection on u, expressed as (N·m,) lower/upper
+vectors (±inf disables a coordinate). State boxes and general
+projections use the XLA path (`solvers/batched.py`), which is also the
+plain reference this kernel is tested against.
+
+Triton wants power-of-two block shapes, so the wrapper pads N·m and
+N·d to powers of two (zero operator rows and columns, [0, 0] bounds:
+padded coordinates stay exactly zero) and pads a ragged batch up to a
+multiple of the tile; outputs are sliced back.
 """
 
 from __future__ import annotations
@@ -27,256 +30,141 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ilqr_admm_tpu.ops.lifted import build_Su, build_Sx
 from ilqr_admm_tpu.problem import QuadCost
 from ilqr_admm_tpu.solvers.lqt import block_diag_stacked, broadcast_rho
 
 _F32 = jnp.float32
-_BF16 = jnp.bfloat16
+
+# In-loop product precision. "ieee": exact f32 FMA products; "tf32x3":
+# three TF32 tensor-core passes (hi·hi + hi·lo + lo·hi), ~f32 accuracy.
+# The XLA CPU backend has no TF32, so "tf32x3" runs on the GPU only.
+PRECISIONS = {
+    "ieee": lax.Precision.HIGHEST,
+    "tf32x3": lax.DotAlgorithmPreset.TF32_TF32_F32_X3,
+}
+
+# Largest padded N·m whose (Nm × Nm) f32 operator (64 KB at 128) stays
+# in one program's shared memory for the whole loop; wider problems use
+# the XLA path (`kernel_fits`).
+MAX_KERNEL_NM = 128
 
 
-def _split_bf16(x):
-    """Split f32 into (hi, lo) bf16 parts with x ≈ hi + lo."""
-    hi = x.astype(_BF16)
-    lo = (x - hi.astype(_F32)).astype(_BF16)
-    return hi, lo
+def next_pow2(n: int, floor: int = 16) -> int:
+    """Smallest power of two >= max(n, floor) (Triton block sizes)."""
+    n = max(int(n), floor)
+    return 1 << (n - 1).bit_length()
 
 
-def _dot3(a, b_hi, b_lo):
-    """bf16x3 product of f32 `a` against a pre-split operand (hi, lo).
-
-    a_hi b_hi + a_lo b_hi + a_hi b_lo — drops only the O(2^-16) lo·lo
-    term; three full-rate bf16 MXU passes. Relative accuracy ~2^-16:
-    bf16's 8 mantissa bits + one correction level.
-    """
-    a_hi, a_lo = _split_bf16(a)
-    return (
-        jnp.dot(a_hi, b_hi, preferred_element_type=_F32)
-        + jnp.dot(a_lo, b_hi, preferred_element_type=_F32)
-        + jnp.dot(a_hi, b_lo, preferred_element_type=_F32)
-    )
+def kernel_fits(Nm: int) -> bool:
+    """Whether an N·m-wide fleet runs in this kernel."""
+    return next_pow2(Nm) <= MAX_KERNEL_NM
 
 
-def _split_bf16_3(x):
-    """Split f32 into (hi, mid, lo) bf16 parts with x ≈ hi + mid + lo."""
-    hi = x.astype(_BF16)
-    r = x - hi.astype(_F32)
-    mid = r.astype(_BF16)
-    lo = (r - mid.astype(_F32)).astype(_BF16)
-    return hi, mid, lo
+def pad_to(x, shape, value=0.0):
+    """Zero-pad (or `value`-pad) `x` at the end of every axis to `shape`."""
+    pads = [(0, s - d) for s, d in zip(shape, x.shape)]
+    return jnp.pad(x, pads, constant_values=value)
 
 
-def _dot6(a, b_hi, b_mid, b_lo):
-    """bf16x6 product: full-f32-equivalent accuracy (~2^-24 relative).
-
-    Three-way splits of both operands, keeping the six products whose
-    magnitude exceeds 2^-24: a0b0 + (a0b1 + a1b0) + (a0b2 + a1b1 + a2b0).
-    Twice the MXU passes of `_dot3` — used only for the final polish
-    iterations of the ADMM loop, where the bf16x3 noise floor (~7e-4 on
-    a 100-element residual norm) would otherwise hold the primal
-    residual above the 1e-4 convergence tolerance.
-    """
-    a0, a1, a2 = _split_bf16_3(a)
-    d = lambda u, v: jnp.dot(u, v, preferred_element_type=_F32)
-    return (
-        d(a0, b_hi)
-        + (d(a0, b_mid) + d(a1, b_hi))
-        + (d(a0, b_lo) + d(a1, b_mid) + d(a2, b_hi))
-    )
+# Triton warps per program: with 8 a 16-row tile's iterates and the
+# on-chip operator fit the registers; 4 warps are 1.4x (P1) and 2.4x
+# (P2) slower (`benchmarks/bench_kernel_sweep.py`, PERF.md).
+NUM_WARPS = 8
 
 
-def _admm_kernel_u_only(
-    # batch-tiled inputs: precomputed unconstrained iterates
-    u_base_ref, x_base_ref,
-    # control response  Wu = (Rr l_inv)^T   pre-split 3-way to bf16
-    Wu_hi_ref, Wu_mid_ref, Wu_lo_ref,
-    # state response    Wx = (Rr l_inv Su^T)       pre-split to bf16
-    Wx_hi_ref, Wx_lo_ref,
-    ub_ref,
-    x_out_ref, u_out_ref, zu_out_ref,
-    *, n_iters: int, refresh_every: int, alpha: float, polish_iters: int,
-    stop_tol: float = 0.0, check_every: int = 8,
-):
-    """Control-bounds-only fast path: ~1 narrow bf16 GEMM per iteration.
+def triton_params():
+    """NUM_WARPS warps; no loads inside the loop, so one pipeline stage."""
+    return pl_triton.CompilerParams(num_warps=NUM_WARPS, num_stages=1)
 
-    With only the u-block active, u_hat and x_hat are affine in the
-    single regularization target s = z_u - λ_u:
-        u_hat = u_base + s @ Wu,   x_hat = x_base + s @ Wx.
 
-    Two savings over the naive loop:
-    - **x out of the loop**: x_hat never feeds back (no state projection),
-      so the Wx product (Nd = 2·Nm output columns) runs ONCE after the
-      loop on the final s instead of every iteration;
-    - **incremental (delta) GEMM**: the running correction c = s @ Wu is
-      updated as c += (s - s_prev) @ Wu_hi in a SINGLE bf16 pass — the
-      per-pass error is O(2^-8 |Δs|) and Δs → 0 as ADMM converges, so
-      the cheap passes get *more* accurate as the solve proceeds. Every
-      `refresh_every` iterations c is recomputed exactly (bf16x3) from
-      the current s, squashing any accumulated drift.
-
-    Average MXU passes per iteration ≈ 1 + 2/refresh_every over Nm
-    output columns (vs 3 over Nm+Nd for the naive loop: ~7.5x fewer
-    column-passes at refresh_every=8).
-    """
-    u_base = u_base_ref[:]
-
-    lo = ub_ref[0, :]
-    hi = ub_ref[1, :]
-
-    def one_iter(z_u, l_u, c):
-        # Standard scaled-ADMM step given c = (z_u - λ_u) @ Wu. The
-        # over-relaxation blend folds away at trace time when alpha=1
-        # (the default): two fewer VPU ops per iteration in a VPU-bound
-        # kernel.
-        u_hat = u_base + c
-        if alpha == 1.0:
-            # t = u_hat + λ reused for both the projection argument and
-            # the dual update (λ_new = t - z_new): one VPU op fewer
-            t = u_hat + l_u
-            z_new = jnp.clip(t, lo, hi)
-            return z_new, t - z_new, u_hat
-        z_rel = alpha * u_hat + (1.0 - alpha) * z_u
-        z_new = jnp.clip(z_rel + l_u, lo, hi)
-        l_new = l_u + u_hat - z_new
-        return z_new, l_new, u_hat
-
-    def inner(_, carry):
-        z_u, l_u, s, c, u = carry
-        s_new = z_u - l_u
-        d_hi, _ = _split_bf16(s_new - s)
-        c = c + jnp.dot(d_hi, Wu_hi_ref[:], preferred_element_type=_F32)
-        z_u, l_u, u = one_iter(z_u, l_u, c)
-        return (z_u, l_u, s_new, c, u)
-
-    def outer(_, carry):
-        z_u, l_u, _, _, u = carry
-        s = z_u - l_u
-        c = _dot3(s, Wu_hi_ref[:], Wu_mid_ref[:])  # exact bf16x3 refresh
-        z_u, l_u, u = one_iter(z_u, l_u, c)
-        return lax.fori_loop(0, refresh_every - 1, inner, (z_u, l_u, s, c, u))
-
-    def polish(_, carry):
-        # full-f32-equivalent (bf16x6) final iterations: the bf16x3
-        # floor (~7e-4 on the residual norm) otherwise holds ~25% of
-        # instances above the 1e-4 primal tolerance (measured, TPU)
-        z_u, l_u, _, _, u = carry
-        s = z_u - l_u
-        c = _dot6(s, Wu_hi_ref[:], Wu_mid_ref[:], Wu_lo_ref[:])
-        z_u, l_u, u = one_iter(z_u, l_u, c)
-        return (z_u, l_u, s, c, u)
-
-    n_main = max(n_iters - polish_iters, 0)
-    n_outer = -(-n_main // refresh_every)
-    z0 = u_base
-    l0 = jnp.zeros_like(z0)
-    c0 = jnp.zeros_like(z0)
-    if stop_tol > 0.0:
-        # per-TILE early exit: once every instance in this grid tile has
-        # its max-abs primal residual |u_hat - z| below stop_tol, the
-        # remaining main-phase blocks are skipped (the bf16x6 polish
-        # still runs — it produces the certified tail). Tiles exit
-        # independently; sorting a heterogeneous fleet by difficulty
-        # proxy (e.g. |x0|) groups stragglers so easy tiles stop early.
-        # The residual reduction + while_loop bookkeeping run only every
-        # `check_every` outer blocks — a per-iteration check measurably
-        # UNDID the win (0.88x) by blocking Mosaic's loop pipelining.
-        # Each chunk ends with ONE bf16x6 (polish-grade) iteration whose
-        # residual is the exit test: the bf16x3 main-loop residual floor
-        # (~7e-4) sits ABOVE useful tolerances, so testing the bf16x3
-        # iterate either never fires (tol below the floor) or exits
-        # under-converged tiles (tol above it, measured -2.3pp converged
-        # fraction). The exact iterate's residual is floor-free, and the
-        # extra 6-pass GEMM amortizes over the chunk.
-        #
-        # Iteration accounting: a chunk EXECUTES (check_every-1) refresh
-        # blocks + 1 polish iteration, so n_chunks is sized on executed
-        # iterations — an unconverged tile runs >= the fixed schedule's
-        # n_main (up to one chunk extra, same overrun class as the
-        # refresh blocks), never fewer.
-        iters_per_chunk = (check_every - 1) * refresh_every + 1
-        n_chunks = -(-n_main // iters_per_chunk)
-
-        def w_cond(state):
-            i, _z, _l, _s, _c, _u, r = state
-            return jnp.logical_and(i < n_chunks, r >= stop_tol)
-
-        def w_body(state):
-            i, z_u, l_u, s, c, u, _r = state
-            z_u, l_u, s, c, u = lax.fori_loop(
-                0, check_every - 1, outer, (z_u, l_u, s, c, u)
-            )
-            z_u, l_u, s, c, u = polish(0, (z_u, l_u, s, c, u))
-            r = jnp.max(jnp.abs(u - z_u))
-            return (i + 1, z_u, l_u, s, c, u, r)
-
-        big = jnp.asarray(jnp.inf, _F32)
-        state = lax.while_loop(
-            w_cond, w_body, (jnp.int32(0), z0, l0, z0, c0, u_base, big)
+def check_tile(batch_tile: int) -> None:
+    if batch_tile < 16 or batch_tile & (batch_tile - 1):
+        raise ValueError(
+            f"batch_tile must be a power of two >= 16, got {batch_tile}"
         )
-        carry = state[1:6]
-    else:
-        carry = lax.fori_loop(0, n_outer, outer, (z0, l0, z0, c0, u_base))
-    z_u, l_u, s, c, u = lax.fori_loop(0, polish_iters, polish, carry)
 
-    # final state trajectory from the s that produced the last u_hat
-    x_out_ref[:] = x_base_ref[:] + _dot3(s, Wx_hi_ref[:], Wx_lo_ref[:])
-    u_out_ref[:] = u
-    zu_out_ref[:] = z_u
+
+def _max_abs(x):
+    # Triton reductions take one axis at a time
+    return jnp.max(jnp.max(jnp.abs(x), axis=1), axis=0)
 
 
 def _admm_kernel(
-    # batch-tiled inputs
-    free_ref, r_base_ref, u0_ref,
-    # shared operators, pre-split into bf16 (hi, lo) pairs
-    l_invT_hi_ref, l_invT_lo_ref,
-    SuT_hi_ref, SuT_lo_ref,
-    SuTQrT_hi_ref, SuTQrT_lo_ref,
-    RrT_hi_ref, RrT_lo_ref,
-    # bounds (2, N*dim) stacked [lower; upper]
-    xb_ref, ub_ref,
-    # outputs
-    x_out_ref, u_out_ref, zx_out_ref, zu_out_ref,
-    *, n_iters: int, has_x: bool, has_u: bool, alpha: float,
+    u_base_ref, u0_ref, x_base_ref,
+    W_ref, Wx_ref, ub_ref,
+    x_out_ref, u_out_ref, zu_out_ref,
+    *, n_iters: int, alpha: float, precision, stop_tol: float,
+    check_every: int,
 ):
-    free = free_ref[:]
-    r_base = r_base_ref[:]
-    u0 = u0_ref[:]
+    """One (tile × Nm)·(Nm × Nm) product per iteration.
 
-    z_u = u0
-    z_x = free + _dot3(u0, SuT_hi_ref[:], SuT_lo_ref[:])
-    l_x = jnp.zeros_like(z_x)
-    l_u = jnp.zeros_like(z_u)
+    With only the u-block active, u_hat and x_hat are affine in the
+    regularization target s = z_u - λ_u:
+        u_hat = u_base + s @ W,   x_hat = x_base + s @ Wx,
+    and x_hat never feeds back, so the Wx product runs once after the
+    loop. The loop carries only (z, λ); the last iteration is peeled off
+    to produce u_hat and s.
+    """
+    u_base = u_base_ref[...]
+    lo = ub_ref[0, :][None, :]
+    hi = ub_ref[1, :][None, :]
+    W = W_ref[...]
+    dot = functools.partial(
+        jnp.dot, precision=precision, preferred_element_type=_F32
+    )
 
-    def body(_, carry):
-        z_x, z_u, l_x, l_u, x, u = carry
-        r = r_base
-        if has_x:
-            r = r + _dot3(z_x - l_x, SuTQrT_hi_ref[:], SuTQrT_lo_ref[:])
-        if has_u:
-            r = r + _dot3(z_u - l_u, RrT_hi_ref[:], RrT_lo_ref[:])
-        u_hat = _dot3(r, l_invT_hi_ref[:], l_invT_lo_ref[:])
-        x_hat = free + _dot3(u_hat, SuT_hi_ref[:], SuT_lo_ref[:])
+    def x_update(z_u, l_u):
+        s = z_u - l_u
+        return s, u_base + dot(s, W)
 
-        if has_x:
-            z_rel = x_hat if alpha == 1.0 else alpha * x_hat + (1.0 - alpha) * z_x
-            z_x_new = jnp.clip(z_rel + l_x, xb_ref[0, :], xb_ref[1, :])
-            l_x = l_x + x_hat - z_x_new
-            z_x = z_x_new
-        if has_u:
-            z_rel = u_hat if alpha == 1.0 else alpha * u_hat + (1.0 - alpha) * z_u
-            z_u_new = jnp.clip(z_rel + l_u, ub_ref[0, :], ub_ref[1, :])
-            l_u = l_u + u_hat - z_u_new
-            z_u = z_u_new
-        return (z_x, z_u, l_x, l_u, x_hat, u_hat)
+    def project(z_u, l_u, u_hat):
+        if alpha == 1.0:
+            # t serves both the projection and the dual update
+            t = u_hat + l_u
+            z_new = jnp.clip(t, lo, hi)
+            return z_new, t - z_new
+        z_new = jnp.clip(alpha * u_hat + (1.0 - alpha) * z_u + l_u, lo, hi)
+        return z_new, l_u + u_hat - z_new
 
-    init = (z_x, z_u, l_x, l_u, z_x, z_u)
-    z_x, z_u, l_x, l_u, x, u = lax.fori_loop(0, n_iters, body, init)
-    x_out_ref[:] = x
-    u_out_ref[:] = u
-    zx_out_ref[:] = z_x
-    zu_out_ref[:] = z_u
+    def step(_, carry):
+        z_u, l_u = carry
+        return project(z_u, l_u, x_update(z_u, l_u)[1])
+
+    carry = (u0_ref[...], jnp.zeros_like(u_base))
+    if stop_tol > 0.0:
+        # per-program early exit: after each chunk of `check_every`
+        # iterations the tile stops once every instance has max-abs
+        # primal residual |u_hat - z| and z-motion |z - z_prev| under
+        # stop_tol. Programs exit independently; an unconverged tile
+        # runs up to check_every - 1 iterations past n_iters.
+        n_chunks = -(-(n_iters - 1) // check_every)
+
+        def w_cond(state):
+            i, _, r = state
+            return jnp.logical_and(i < n_chunks, r >= stop_tol)
+
+        def w_body(state):
+            i, carry, _ = state
+            z_u, l_u = lax.fori_loop(0, check_every - 1, step, carry)
+            u_hat = x_update(z_u, l_u)[1]
+            z_new, l_new = project(z_u, l_u, u_hat)
+            r = jnp.maximum(_max_abs(u_hat - z_new), _max_abs(z_new - z_u))
+            return i + 1, (z_new, l_new), r
+
+        _, carry, _ = lax.while_loop(
+            w_cond, w_body, (jnp.int32(0), carry, jnp.asarray(jnp.inf, _F32))
+        )
+    else:
+        carry = lax.fori_loop(0, n_iters - 1, step, carry)
+    s, u = x_update(*carry)
+    z_u, _ = project(*carry, u)
+
+    x_out_ref[...] = x_base_ref[...] + dot(s, Wx_ref[...])
+    u_out_ref[...] = u
+    zu_out_ref[...] = z_u
 
 
 def make_pallas_lqt_admm(
@@ -285,212 +173,129 @@ def make_pallas_lqt_admm(
     cost: QuadCost,
     u_lower=None,
     u_upper=None,
-    x_lower=None,
-    x_upper=None,
-    rho_x=None,
     rho_u=None,
     n_iters: int = 100,
     alpha: float = 1.0,
-    batch_tile: int = 256,
-    refresh_every: int = 1,
-    polish_iters: int = 8,
+    batch_tile: int = 16,
+    precision: str = "tf32x3",
     stop_tol: float = 0.0,
     check_every: int = 8,
     interpret: bool = False,
 ):
-    """Build a fused-Pallas batched box-constrained LQT-ADMM solver.
+    """Build a fused-Pallas batched control-bounds LQT-ADMM solver.
 
-    u_lower/u_upper: scalars or (N*u_dim,) bounds; x_lower/x_upper:
-    scalars or (N*x_dim,) bounds (None disables that block). Returns
-    solve(x0s (batch, d)) -> (x, u, z_x, z_u) with batch a multiple of
-    batch_tile.
+    u_lower/u_upper: scalars or (N*u_dim,) bounds (None: unbounded on
+    that side). Returns solve(x0s (batch, d)) -> (x, u, z_u), the same
+    iterates as `solvers/batched.py::make_batched_lqt_admm` (same warm
+    start, same update order): x, u are the last x-update, z_u the
+    projected iterate. Any batch size is accepted; `solve.padded`
+    returns the kernel's padded outputs. State-box fleets use
+    `solvers/batched.py`.
 
-    refresh_every (u-only path): iterations between exact bf16x3
-    recomputations of the running GEMM correction; in between, single-
-    pass bf16 delta updates (see `_admm_kernel_u_only`). 1 = always
-    exact (default — at N·u_dim ≈ 100 the kernel is pipeline/VPU-bound
-    and the delta bookkeeping costs more than the saved MXU passes;
-    raise to ~8 for wide problems where the Nm×Nm GEMM dominates). The
-    u-only path runs ceil((n_iters - polish_iters)/refresh_every) full
-    blocks (≤ refresh_every-1 extra iterations past n_iters).
-
-    stop_tol (u-only path): > 0 enables per-TILE early exit — a grid
-    tile stops its main-phase iterations once every instance in it has
-    max-abs primal residual |u_hat - z| < stop_tol (the bf16x6 polish
-    tail still runs, preserving the convergence certificate). Modeled
-    on the reference's per-problem ADMM early stopping (`admm.py:72-85`)
-    at the granularity the MXU actually works in: whole batch tiles.
-    Heterogeneous fleets should be sorted by a difficulty proxy (e.g.
-    |x0 - xd|) so stragglers share tiles and easy tiles exit early;
-    0 (default) keeps the fixed-iteration schedule. `check_every` sets
-    how many outer blocks run between residual checks (per-iteration
-    checking blocks Mosaic's loop pipelining — measured 0.88x).
-
-    polish_iters (u-only path): final iterations run with the
-    full-f32-equivalent bf16x6 product (`_dot6`) instead of bf16x3 —
-    the bf16x3 noise floor (~2^-16 relative) otherwise pins the primal
-    residual of borderline instances just above tolerances of ~1e-4.
-    Measured TPU sweep (16k instances, 100 iters, rho=0.1): polish 0 ->
-    848M it/s but only 74% under the 1e-4 tolerance (max residual
-    1.9e-4); polish 6 -> 832M at 100% (8.9e-5); polish 12 -> 810M at
-    100% (8.1e-5 — the f32 ADMM floor, more polish doesn't help).
-    Default 8 leaves headroom above the floor at ~2% rate cost.
+    precision: "ieee" or "tf32x3" (`PRECISIONS`). batch_tile: rows per
+    program, a power of two >= 16. stop_tol > 0 enables per-tile early
+    exit, checked every `check_every` iterations. interpret=True runs
+    the kernel through the Pallas interpreter (the only mode on CPU).
     """
     N, d = A.shape[0], A.shape[-1]
     m = B.shape[-1]
-    has_u = u_lower is not None or u_upper is not None
-    has_x = x_lower is not None or x_upper is not None
-    if not (has_u or has_x):
-        raise ValueError("at least one box constraint required")
+    if u_lower is None and u_upper is None:
+        raise ValueError("control bounds required (u_lower and/or u_upper)")
     # same invariant as solvers.admm.validate_constraint_blocks: bounds
     # without a (nonzero) rho would be silently ignored by the x-update
-    # (W_u/SuTQr stay zero and the kernel returns the unconstrained
-    # optimum while zu looks feasible)
+    # (W stays zero and the kernel returns the unconstrained optimum
+    # while zu looks feasible)
     from ilqr_admm_tpu.solvers.admm import validate_constraint_blocks
 
-    validate_constraint_blocks(
-        object() if has_x else None, rho_x,
-        object() if has_u else None, rho_u,
-    )
+    validate_constraint_blocks(None, None, object(), rho_u)
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; use {list(PRECISIONS)}")
+    check_tile(batch_tile)
+    if n_iters < 1:
+        raise ValueError(f"n_iters must be >= 1, got {n_iters}")
+    Nm, Nd = N * m, N * d
+    Nm_p, Nd_p = next_pow2(Nm), next_pow2(Nd)
+    if Nm_p > MAX_KERNEL_NM:
+        raise ValueError(
+            f"N*m = {Nm} pads to {Nm_p} > {MAX_KERNEL_NM}: the operator does "
+            "not fit on chip; use solvers.batched.make_batched_lqt_admm"
+        )
 
     dtype = _F32
     A = A.astype(dtype)
     B = B.astype(dtype)
-
-    Qr = broadcast_rho(rho_x, d, N, dtype)
     Rr = broadcast_rho(rho_u, m, N, dtype)
 
-    # One-time operator setup at HIGHEST precision: TPU-default bf16
-    # matmuls here perturb the operators enough that the kernel converges
-    # to a 4%-off optimum (see solvers/batched.py note; same mechanism).
+    # one-time operator setup at HIGHEST precision: unpinned f32 matmuls
+    # may run in TF32 on the GPU and perturb the operators enough that
+    # ADMM converges to the optimum of a different problem
     with jax.default_matmul_precision("highest"):
         Su = build_Su(A, B)
-        Sx = build_Sx(A).reshape(N * d, d)
-        Qlift = block_diag_stacked(cost.Q).astype(dtype)
-        Rlift = block_diag_stacked(cost.R).astype(dtype)
-        SuTQ = Su.T @ Qlift
-        l_side = SuTQ @ Su + Rlift
-
-        SuTQr = jnp.zeros((N * m, N * d), dtype)
-        if Qr is not None and has_x:
-            SuTQr = Su.T @ block_diag_stacked(Qr).astype(dtype)
-            l_side = l_side + SuTQr @ Su
-        Rr_l = jnp.zeros((N * m, N * m), dtype)
-        if Rr is not None and has_u:
-            Rr_l = block_diag_stacked(Rr).astype(dtype)
-            l_side = l_side + Rr_l
-        l_inv = jnp.linalg.inv(l_side)
+        Sx = build_Sx(A).reshape(Nd, d)
+        SuTQ = Su.T @ block_diag_stacked(cost.Q).astype(dtype)
+        l_side = SuTQ @ Su + block_diag_stacked(cost.R).astype(dtype)
+        l_inv_unreg = jnp.linalg.inv(l_side)
+        Rr_l = block_diag_stacked(Rr).astype(dtype)
+        l_inv = jnp.linalg.inv(l_side + Rr_l)
         r_const = SuTQ @ cost.lifted_xd().astype(dtype)
+        W = Rr_l.T @ l_inv.T  # (Nm, Nm): u_hat += s @ W
+        Wx = W @ Su.T  # (Nm, Nd): state response to s
 
-    def bounds_vec(lo, hi, size):
-        lo = -jnp.inf if lo is None else lo
-        hi = jnp.inf if hi is None else hi
-        lo = jnp.broadcast_to(jnp.asarray(lo, dtype), (size,))
-        hi = jnp.broadcast_to(jnp.asarray(hi, dtype), (size,))
-        return jnp.stack([lo, hi])
-
-    xb = bounds_vec(x_lower, x_upper, N * d)
-    ub = bounds_vec(u_lower, u_upper, N * m)
-
-    l_invT_hi, l_invT_lo = _split_bf16(l_inv.T)
-    SuT_hi, SuT_lo = _split_bf16(Su.T)
-    SuTQrT_hi, SuTQrT_lo = _split_bf16(SuTQr.T)
-    RrT_hi, RrT_lo = _split_bf16(Rr_l.T)
-
+    lo = -jnp.inf if u_lower is None else u_lower
+    hi = jnp.inf if u_upper is None else u_upper
+    lo = jnp.broadcast_to(jnp.asarray(lo, dtype), (Nm,))
+    hi = jnp.broadcast_to(jnp.asarray(hi, dtype), (Nm,))
+    ub = pad_to(jnp.stack([lo, hi]), (2, Nm_p))  # pads are [0, 0]
+    W_p = pad_to(W, (Nm_p, Nm_p))
+    Wx_p = pad_to(Wx, (Nm_p, Nd_p))
     kernel = functools.partial(
-        _admm_kernel, n_iters=n_iters, has_x=has_x, has_u=has_u, alpha=alpha
+        _admm_kernel, n_iters=n_iters, alpha=alpha,
+        precision=PRECISIONS[precision], stop_tol=float(stop_tol),
+        check_every=int(check_every),
     )
+    params = triton_params()
+    hp = lax.Precision.HIGHEST  # per-solve setup products, outside the kernel
 
-    prec = jax.lax.Precision.HIGHEST  # host-side setup matmuls
+    def tile(cols):
+        return pl.BlockSpec((batch_tile, cols), lambda i: (i, 0))
 
-    u_only = has_u and not has_x
-    if u_only:
-        W_u = jnp.matmul(Rr_l.T, l_inv.T, precision=prec)  # (Nm, Nm) in-loop
-        W_x = jnp.matmul(W_u, Su.T, precision=prec)  # (Nm, Nd) state recovery
-        Wu_hi, Wu_mid, Wu_lo = _split_bf16_3(W_u)
-        Wx_hi, Wx_lo = _split_bf16(W_x)
-        kernel_u = functools.partial(
-            _admm_kernel_u_only, n_iters=n_iters,
-            refresh_every=refresh_every, alpha=alpha,
-            polish_iters=min(polish_iters, n_iters),
-            stop_tol=float(stop_tol), check_every=int(check_every),
+    def shared(shape):
+        return pl.BlockSpec(shape, lambda i: (0, 0))
+
+    @jax.jit
+    def solve_padded(x0s):
+        """(batch, d) -> padded (x, u, z_u): (batch_p, Nd_p | Nm_p)."""
+        batch_p = -(-x0s.shape[0] // batch_tile) * batch_tile
+        x0s = pad_to(x0s.astype(dtype), (batch_p, d))
+        free = jnp.matmul(x0s, Sx.T, precision=hp)
+        r_base = r_const[None] - jnp.matmul(free, SuTQ.T, precision=hp)
+        # warm start: the unconstrained optimum (as solvers/batched.py)
+        u0 = jnp.matmul(r_base, l_inv_unreg.T, precision=hp)
+        u_base = jnp.matmul(r_base, l_inv.T, precision=hp)
+        x_base = free + jnp.matmul(u_base, Su.T, precision=hp)
+        out = lambda cols: jax.ShapeDtypeStruct((batch_p, cols), dtype)
+        return pl.pallas_call(
+            kernel,
+            grid=(batch_p // batch_tile,),
+            in_specs=[
+                tile(Nm_p), tile(Nm_p), tile(Nd_p),
+                shared((Nm_p, Nm_p)), shared((Nm_p, Nd_p)), shared((2, Nm_p)),
+            ],
+            out_specs=(tile(Nd_p), tile(Nm_p), tile(Nm_p)),
+            out_shape=(out(Nd_p), out(Nm_p), out(Nm_p)),
+            backend="triton",
+            compiler_params=params,
+            interpret=interpret,
+        )(
+            pad_to(u_base, (batch_p, Nm_p)), pad_to(u0, (batch_p, Nm_p)),
+            pad_to(x_base, (batch_p, Nd_p)), W_p, Wx_p, ub,
         )
 
     @jax.jit
     def solve(x0s):
-        batch = x0s.shape[0]
-        assert batch % batch_tile == 0, "batch must be a multiple of batch_tile"
-        x0s = x0s.astype(dtype)
-        free = jnp.matmul(x0s, Sx.T, precision=prec)
-        r_lin = jnp.matmul(free, SuTQ.T, precision=prec)
-        r_base = r_const[None] - r_lin
-        if has_x and Qr is not None:
-            r_base = r_base - jnp.matmul(free, SuTQr.T, precision=prec)
-        u0 = jnp.matmul(r_const[None] - r_lin, l_inv.T, precision=prec)
+        b = x0s.shape[0]
+        x, u, zu = solve_padded(x0s)
+        return x[:b, :Nd], u[:b, :Nm], zu[:b, :Nm]
 
-        if u_only:
-            u_base = jnp.matmul(r_base, l_inv.T, precision=prec)
-            x_base = free + jnp.matmul(u_base, Su.T, precision=prec)
-            grid = (batch // batch_tile,)
-            tile = lambda cols: pl.BlockSpec(
-                (batch_tile, cols), lambda i: (i, 0), memory_space=pltpu.VMEM
-            )
-            shared = lambda shape: pl.BlockSpec(
-                shape, lambda i: (0, 0), memory_space=pltpu.VMEM
-            )
-            x_out, u_out, zu_out = pl.pallas_call(
-                kernel_u,
-                grid=grid,
-                interpret=interpret,
-                in_specs=[
-                    tile(N * m), tile(N * d),
-                    shared((N * m, N * m)), shared((N * m, N * m)),
-                    shared((N * m, N * m)),
-                    shared((N * m, N * d)), shared((N * m, N * d)),
-                    shared((2, N * m)),
-                ],
-                out_specs=(tile(N * d), tile(N * m), tile(N * m)),
-                out_shape=(
-                    jax.ShapeDtypeStruct((batch, N * d), dtype),
-                    jax.ShapeDtypeStruct((batch, N * m), dtype),
-                    jax.ShapeDtypeStruct((batch, N * m), dtype),
-                ),
-            )(u_base, x_base, Wu_hi, Wu_mid, Wu_lo, Wx_hi, Wx_lo, ub)
-            return x_out, u_out, x_out, zu_out
-
-        grid = (batch // batch_tile,)
-        tile = lambda cols: pl.BlockSpec(
-            (batch_tile, cols), lambda i: (i, 0), memory_space=pltpu.VMEM
-        )
-        shared = lambda shape: pl.BlockSpec(
-            shape, lambda i: (0, 0), memory_space=pltpu.VMEM
-        )
-
-        out_shapes = (
-            jax.ShapeDtypeStruct((batch, N * d), dtype),
-            jax.ShapeDtypeStruct((batch, N * m), dtype),
-            jax.ShapeDtypeStruct((batch, N * d), dtype),
-            jax.ShapeDtypeStruct((batch, N * m), dtype),
-        )
-        return pl.pallas_call(
-            kernel,
-            grid=grid,
-            interpret=interpret,
-            in_specs=[
-                tile(N * d), tile(N * m), tile(N * m),
-                shared((N * m, N * m)), shared((N * m, N * m)),
-                shared((N * m, N * d)), shared((N * m, N * d)),
-                shared((N * d, N * m)), shared((N * d, N * m)),
-                shared((N * m, N * m)), shared((N * m, N * m)),
-                shared((2, N * d)), shared((2, N * m)),
-            ],
-            out_specs=(tile(N * d), tile(N * m), tile(N * d), tile(N * m)),
-            out_shape=out_shapes,
-        )(
-            free, r_base, u0,
-            l_invT_hi, l_invT_lo, SuT_hi, SuT_lo,
-            SuTQrT_hi, SuTQrT_lo, RrT_hi, RrT_lo,
-            xb, ub,
-        )
-
+    solve.padded = solve_padded
     return solve

@@ -1,33 +1,30 @@
-"""Fused Pallas kernel: batched robust SLS-ADMM with inlined SOC
-consensus projections.
+"""Fused Pallas (Triton) kernel: batched robust SLS-ADMM with inlined
+chance-constraint projections.
 
 The XLA path (`solvers/batched_sls.py`) streams the (batch, Nm, p+1)
-iterates through HBM every ADMM iteration and runs the consensus-ADMM
+iterates through device memory every ADMM iteration and runs the
 chance-constraint projection as generic vmapped code. This kernel keeps
-a batch tile's entire iterate set resident in VMEM across ALL outer
+a batch tile's entire iterate set in registers across ALL outer
 iterations and fuses everything:
 
 - layout: per-column **slabs** — the decision matrix [du | Phi_u-cols]
-  is stored as p+1 separate (tile_b, Nm) arrays (stacked on a leading
-  static axis), so every reduction of the per-row chance-constraint
-  projection (vectors of length p+1 / p+2) becomes *elementwise* VPU
-  code over slabs with compile-time scalar coefficients — no strided
-  small-axis reductions, no lane waste;
-- x-update: p+1 GEMMs (tile_b, Nm) x (Nm, Nm) per iteration as manual
-  bf16x3 MXU products (same trick as `ops/pallas_admm.py` — Mosaic
-  rejects Precision.HIGH, so split operands and keep the three
-  significant cross terms);
-- z-update: the intersection-of-SOCs projection (chance-constrained
-  bounds, reference notebook construction SURVEY §3.3) runs its
-  consensus-ADMM inner loop (`projections/sets.py::project_set_convex`
-  semantics, fixed iteration count) entirely on the VPU, with the small
-  (p+1, p+1) prefactored inverse unrolled to scalar constants.
+  is stored as p+1 separate (tile_b, Nm) arrays, so every reduction of
+  the per-row chance-constraint projection (vectors of length p+1 / p+2)
+  becomes *elementwise* code over slabs with compile-time scalar
+  coefficients;
+- x-update: p+1 products (tile_b, Nm) x (Nm, Nm) per iteration against
+  one operator W that stays on chip for the whole loop;
+- z-update: either the exact closed-form "diamond" row projection or the
+  intersection-of-SOCs projection (chance-constrained bounds, reference
+  notebook construction SURVEY §3.3) whose consensus-ADMM inner loop
+  (`projections/sets.py::project_set_convex` semantics, fixed iteration
+  count) runs as unrolled elementwise code, with the small (p+1, p+1)
+  prefactored inverse unrolled to scalar constants.
 
 Specialization: chance-constrained *control* rows — each row phi of
 [du | Phi_u] must satisfy A_i phi + b_i in SOC for a static list of
 A_i, with the per-instance scenario parameter (the bound) entering b_i
-linearly. This is the robust benchmark class (control chance
-constraints); state chance constraints use the XLA path.
+linearly. State chance constraints use the XLA path.
 """
 
 from __future__ import annotations
@@ -39,10 +36,12 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ilqr_admm_tpu.ops.lifted import build_Su, build_Sx
-from ilqr_admm_tpu.ops.pallas_admm import _dot3, _split_bf16
+from ilqr_admm_tpu.ops.pallas_admm import (
+    MAX_KERNEL_NM, PRECISIONS, _max_abs, check_tile, next_pow2, pad_to,
+    triton_params,
+)
 from ilqr_admm_tpu.problem import QuadCost
 from ilqr_admm_tpu.solvers.lqt import block_diag_stacked, broadcast_rho
 
@@ -53,7 +52,7 @@ _EPS = 1e-30
 def _soc_project_slabs(ws, t):
     """SOC projection of slab-decomposed [w_0..w_{q-1} | t] onto
     ||w|| <= t. ws: list of (tile_b, Nm) slabs; t: (tile_b, Nm).
-    Elementwise (VPU) — mirrors `projections/primitives.py:83-98`."""
+    Elementwise — mirrors `projections/primitives.py:83-98`."""
     n2 = ws[0] * ws[0]
     for w in ws[1:]:
         n2 = n2 + w * w
@@ -76,9 +75,9 @@ def _diamond_project_slabs(a, b, w0, w1, r):
     Elementwise over (tile_b, Nm) slabs: the soft-threshold solution
     v_k = sign(v_k) max(|v_k| - lam w_k, 0) with the 2D lambda resolved
     branchlessly (both-active line projection, then the two
-    one-coordinate-clamped vertex branches). ~20 VPU ops — replaces the
-    generic n_cons_iters-deep consensus-ADMM inner loop entirely, and is
-    EXACT (the consensus inner loop is only ever approximately feasible).
+    one-coordinate-clamped vertex branches). Replaces the generic
+    n_cons_iters-deep consensus-ADMM inner loop entirely, and is EXACT
+    (the consensus inner loop is only ever approximately feasible).
     """
     aa = jnp.abs(a)
     ab = jnp.abs(b)
@@ -97,10 +96,10 @@ def _diamond_project_slabs(a, b, w0, w1, r):
 
 
 def _sls_admm_kernel(
-    bound_ref,  # (tile_b, Nm) per-instance bound broadcast
-    U_base_ref,  # (p1, tile_b, Nm) unconstrained x-update base
-    W_hi_ref, W_lo_ref,  # (Nm, Nm) composite (l_inv Rr)^T pre-split
-    U_out_ref,  # (p1, tile_b, Nm)
+    bound_ref,  # (tile_b, 1) per-instance bound
+    U_base_ref,  # (p1_p, Nm) unconstrained x-update base, one row per slab
+    W_ref,  # (Nm, Nm) composite (l_inv Rr)^T
+    U_out_ref,  # (p1_p, tile_b, Nm)
     *,
     n_iters: int,
     n_cons_iters: int,
@@ -113,15 +112,18 @@ def _sls_admm_kernel(
     soc_b_fixed,  # tuple of np (q,) vectors
     soc_b_bound,  # tuple of np (q,) vectors: b_i = fixed + bound * coeff
     l_inv_cons,  # np (p1, p1) prefactored consensus inverse
-    mxu_dot,  # (a, b_hi, b_lo) -> a@b at the chosen device precision
+    precision,
     z_update: str = "consensus",
     diamond_w=None,  # (p1,) weights when z_update == "diamond"
 ):
     nsets = len(soc_A)
     # SOC dimension (q-1 "z" comps + 1 "t" comp); unused in diamond mode
     q = soc_A[0].shape[0] if nsets else 0
-    bound = bound_ref[:]
-    U_base = [U_base_ref[k] for k in range(p1)]
+    tile_b, Nm = U_out_ref.shape[1], U_out_ref.shape[2]
+    bound = jnp.broadcast_to(bound_ref[...], (tile_b, Nm))
+    U_base = [jnp.broadcast_to(U_base_ref[k, :][None, :], (tile_b, Nm))
+              for k in range(p1)]
+    W = W_ref[...]
 
     def b_slab(i, r):
         """Constraint offset b_i[r] as a (tile_b, Nm) slab."""
@@ -202,73 +204,68 @@ def _sls_admm_kernel(
             return tuple(tuple(row) for row in nested)
 
         zs, lmbs = lax.fori_loop(
-            0, n_cons_iters, lambda i, c: tuple(map(pack, body(i, c))),
+            0, n_cons_iters - 1, lambda i, c: tuple(map(pack, body(i, c))),
             (pack(zs), pack(lmbs)),
         )
-        # one final x-update so the result reflects the last duals
+        # the last iteration's x-update is the result, as in
+        # project_set_convex (its z / dual half would be discarded)
         return x_update(zs, lmbs)
 
-    def outer_body(_, carry):
-        Z, L, U = carry
-        # x-update: U_k = U_base_k + (Z_k - L_k) @ W. The p1 slab GEMMs
-        # are PACKED into one (p1*tile_b, Nm) x (Nm, Nm) MXU product
-        # (VERDICT r4 #3): one issue instead of p1, better systolic
-        # utilization at these small per-slab row counts.
-        tile_b = U_base[0].shape[0]
-        S = jnp.concatenate([Z[k] - L[k] for k in range(p1)], axis=0)
-        P = mxu_dot(S, W_hi_ref[:], W_lo_ref[:])
-        U_new = tuple(
-            U_base[k] + P[k * tile_b:(k + 1) * tile_b] for k in range(p1)
+    def x_update(Z, L):
+        # U_k = U_base_k + (Z_k - L_k) @ W
+        return tuple(
+            U_base[k] + jnp.dot(Z[k] - L[k], W, precision=precision,
+                                preferred_element_type=_F32)
+            for k in range(p1)
         )
-        ys = [alpha * U_new[k] + (1.0 - alpha) * Z[k] + L[k] for k in range(p1)]
+
+    def z_dual_update(Z, L, U):
+        ys = [alpha * U[k] + (1.0 - alpha) * Z[k] + L[k] for k in range(p1)]
         if z_update == "diamond":
-            a_out, b_out = _diamond_project_slabs(
+            Z_new = _diamond_project_slabs(
                 ys[0], ys[1], float(diamond_w[0]), float(diamond_w[1]), bound
             )
-            Z_new = (a_out, b_out)
         else:
-            Z_new = tuple(consensus_project(ys))
-        L_new = tuple(L[k] + U_new[k] - Z_new[k] for k in range(p1))
-        return Z_new, L_new, U_new
+            Z_new = consensus_project(ys)
+        return (tuple(Z_new),
+                tuple(L[k] + U[k] - Z_new[k] for k in range(p1)))
 
-    Z0 = tuple(U_base[k] for k in range(p1))
-    L0 = tuple(jnp.zeros_like(U_base[0]) for _ in range(p1))
+    def step(_, carry):
+        return z_dual_update(*carry, x_update(*carry))
+
+    # zero start, as solvers/batched_sls.py: the first x-update is U_base.
+    # The loop carries only (Z, L); the last iteration is peeled off.
+    zero = jnp.zeros((tile_b, Nm), _F32)
+    carry = ((zero,) * p1, (zero,) * p1)
     if stop_tol > 0.0:
-        # per-TILE early exit (same design as pallas_admm r4): residual
-        # checked every `check_every` iterations — per-iteration checks
-        # block Mosaic's pipelining. At this kernel's large rho_u the
-        # primal residual |U - Z| is tight from the first iterations
-        # while the DUAL residual (per-iteration z motion) is the live
-        # one, so the test takes the max of both. The iterates carry the
-        # mxu_dot precision floor (~7e-4 for the default bf16x3); pick
-        # stop_tol above it. n_chunks is a ceil: an unconverged tile
-        # runs up to check_every-1 iterations PAST n_iters (extra
-        # iterations only tighten convergence; results therefore differ
-        # slightly from the stop_tol=0 schedule for stragglers).
-        n_chunks = -(-n_iters // check_every)
+        # per-program early exit: the residual is checked every
+        # `check_every` iterations. At large rho_u the primal residual
+        # |U - Z| is tight from the first iterations while the DUAL
+        # residual (per-iteration z motion) is the live one, so the test
+        # takes the max of both. An unconverged tile runs up to
+        # check_every - 1 iterations past n_iters.
+        n_chunks = -(-(n_iters - 1) // check_every)
 
         def w_cond(state):
-            return jnp.logical_and(state[0] < n_chunks, state[4] >= stop_tol)
+            return jnp.logical_and(state[0] < n_chunks, state[2] >= stop_tol)
 
         def w_body(state):
-            i, Z, L, U, _r = state
-            Z, L, U = lax.fori_loop(
-                0, check_every - 1, outer_body, (Z, L, U)
-            )
-            Z_prev = Z
-            Z, L, U = outer_body(0, (Z, L, U))
-            r = jnp.asarray(0.0, U[0].dtype)
+            i, carry, _ = state
+            Z, L = lax.fori_loop(0, check_every - 1, step, carry)
+            U = x_update(Z, L)
+            Z_new, L_new = z_dual_update(Z, L, U)
+            r = jnp.asarray(0.0, _F32)
             for k in range(p1):
-                r = jnp.maximum(r, jnp.max(jnp.abs(U[k] - Z[k])))
-                r = jnp.maximum(r, jnp.max(jnp.abs(Z[k] - Z_prev[k])))
-            return (i + 1, Z, L, U, r)
+                r = jnp.maximum(r, _max_abs(U[k] - Z_new[k]))
+                r = jnp.maximum(r, _max_abs(Z_new[k] - Z[k]))
+            return i + 1, (Z_new, L_new), r
 
-        big = jnp.asarray(jnp.inf, U_base[0].dtype)
-        _, Z, L, U, _ = lax.while_loop(
-            w_cond, w_body, (jnp.int32(0), Z0, L0, Z0, big)
+        _, carry, _ = lax.while_loop(
+            w_cond, w_body, (jnp.int32(0), carry, jnp.asarray(jnp.inf, _F32))
         )
     else:
-        Z, L, U = lax.fori_loop(0, n_iters, outer_body, (Z0, L0, Z0))
+        carry = lax.fori_loop(0, n_iters - 1, step, carry)
+    U = x_update(*carry)
     for k in range(p1):
         U_out_ref[k] = U[k]
 
@@ -286,8 +283,8 @@ def make_pallas_sls_admm(
     n_cons_iters: int = 20,
     cons_rho: float = 10.0,
     alpha: float = 1.0,
-    batch_tile: int = 256,
-    gemm_precision: str = "f32",
+    batch_tile: int = 16,
+    precision: str = "tf32x3",
     stop_tol: float = 0.0,
     check_every: int = 8,
     interpret: bool = False,
@@ -299,16 +296,13 @@ def make_pallas_sls_admm(
     z_update='diamond' (requires robust_dim == 1 and `diamond_w`, a pair
     of weights) replaces the inner consensus-ADMM projection with the
     EXACT closed-form projection of each row onto the weighted-l1 ball
-    {w0 |du_r| + w1 |phi_r| <= bound} — mathematically the same row set
-    as the two-SOC intersection of the chance-constrained control-bounds
-    construction, at ~20 VPU ops per iteration instead of a
-    n_cons_iters-deep inner loop, and exactly feasible (soc_A/soc_b are
-    ignored; pass empty tuples).
+    {w0 |du_r| + w1 |phi_r| <= bound} — the same row set as the two-SOC
+    intersection of the chance-constrained control-bounds construction,
+    and exactly feasible (soc_A/soc_b are ignored; pass empty tuples).
 
-    stop_tol > 0 enables per-TILE early exit (residual checked every
-    `check_every` iterations; see `ops/pallas_admm.py` for the measured
-    design rules) — heterogeneous scenario fleets sorted by `bounds`
-    group stragglers so easy tiles stop early.
+    stop_tol > 0 enables per-tile early exit (residual checked every
+    `check_every` iterations) — heterogeneous scenario fleets sorted by
+    `bounds` group stragglers so easy tiles stop early.
 
     Chance-constrained control rows: every row phi (length p+1 =
     robust_dim+1) of [du | Phi_u-cols] must satisfy
@@ -317,9 +311,14 @@ def make_pallas_sls_admm(
     per-instance scenario parameter. soc_* are numpy arrays (they are
     baked into the kernel as scalar constants).
 
+    precision, batch_tile, interpret: as
+    `ops/pallas_admm.py::make_pallas_lqt_admm`. Any batch size is
+    accepted (padded to the tile; padded instances get bound 1).
+
     Returns solve(bounds (batch,)) -> (du (batch, Nm),
-    phi_u (batch, Nm, Nd), U (batch, Nm, p+1)), matching
-    `solvers/batched_sls.py::make_batched_sls_admm` outputs.
+    phi_u (batch, Nm, Nd), U (batch, Nm, p+1)), the iterates of
+    `solvers/batched_sls.py::make_batched_sls_admm` (same zero start,
+    same update order).
     """
     N, d = A.shape[0], A.shape[-1]
     m = B.shape[-1]
@@ -331,6 +330,21 @@ def make_pallas_sls_admm(
 
     if z_update not in ("consensus", "diamond"):
         raise ValueError(f"unknown z_update {z_update!r}")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; use {list(PRECISIONS)}")
+    check_tile(batch_tile)
+    if n_iters < 1 or n_cons_iters < 1:
+        raise ValueError(
+            f"n_iters and n_cons_iters must be >= 1, got {n_iters}, "
+            f"{n_cons_iters}"
+        )
+    Nm = N * m
+    Nm_p = next_pow2(Nm)
+    if Nm_p > MAX_KERNEL_NM:
+        raise ValueError(
+            f"N*m = {Nm} pads to {Nm_p} > {MAX_KERNEL_NM}: the operator does "
+            "not fit on chip; use solvers.batched_sls.make_batched_sls_admm"
+        )
     if z_update == "diamond":
         if p1 != 2 or diamond_w is None or len(diamond_w) != 2:
             raise ValueError(
@@ -366,6 +380,7 @@ def make_pallas_sls_admm(
 
     from ilqr_admm_tpu.solvers.lqt import lqt_solve_sls
 
+    # one-time setup pinned at HIGHEST (unpinned f32 may run in TF32)
     with jax.default_matmul_precision("highest"):
         PHI_unc, _ = lqt_solve_sls(A, B, cost)
 
@@ -387,21 +402,9 @@ def make_pallas_sls_admm(
         U_base_cols = (l_inv @ r_base).T  # (p1, Nm)
         W = (l_inv @ Rr_l).T  # (Nm, Nm); U += (Z-L) @ W
 
-    if gemm_precision == "bf16x3":
-        # 3 full-rate bf16 MXU passes; drops the O(2^-16) lo.lo term —
-        # measured insufficient through the ill-conditioned (l_inv Rr)
-        # operator at N=100 (19% solution drift vs the f32 XLA path),
-        # kept as an option for well-conditioned problems.
-        W_hi, W_lo = _split_bf16(W)
-        mxu_dot = _dot3
-    elif gemm_precision == "f32":
-        W_hi, W_lo = W, jnp.zeros_like(W)
-        mxu_dot = lambda a, b_hi, b_lo: jnp.dot(
-            a, b_hi, preferred_element_type=_F32,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-    else:
-        raise ValueError(f"unknown gemm_precision {gemm_precision!r}")
+    p1_p = next_pow2(p1, floor=1)
+    U_base_p = pad_to(U_base_cols, (p1_p, Nm_p))
+    W_p = pad_to(W, (Nm_p, Nm_p))
 
     kernel = functools.partial(
         _sls_admm_kernel,
@@ -409,43 +412,36 @@ def make_pallas_sls_admm(
         cons_rho=cons_rho, p1=p1,
         stop_tol=float(stop_tol), check_every=int(check_every),
         soc_A=soc_A, soc_b_fixed=soc_b_fixed, soc_b_bound=soc_b_bound,
-        l_inv_cons=l_inv_cons, mxu_dot=mxu_dot,
+        l_inv_cons=l_inv_cons, precision=PRECISIONS[precision],
         z_update=z_update, diamond_w=diamond_w,
     )
+    params = triton_params()
 
-    Nm, Nd = N * m, N * d
+    @jax.jit
+    def solve_padded(bounds):
+        """(batch,) -> padded slabs U: (p1_p, batch_p, Nm_p)."""
+        batch_p = -(-bounds.shape[0] // batch_tile) * batch_tile
+        bounds_p = pad_to(bounds.astype(dtype)[:, None], (batch_p, 1), 1.0)
+        return pl.pallas_call(
+            kernel,
+            grid=(batch_p // batch_tile,),
+            in_specs=[
+                pl.BlockSpec((batch_tile, 1), lambda i: (i, 0)),
+                pl.BlockSpec((p1_p, Nm_p), lambda i: (0, 0)),
+                pl.BlockSpec((Nm_p, Nm_p), lambda i: (0, 0)),
+            ],
+            out_specs=pl.BlockSpec((p1_p, batch_tile, Nm_p),
+                                   lambda i: (0, i, 0)),
+            out_shape=jax.ShapeDtypeStruct((p1_p, batch_p, Nm_p), dtype),
+            backend="triton",
+            compiler_params=params,
+            interpret=interpret,
+        )(bounds_p, U_base_p, W_p)
 
     @jax.jit
     def solve(bounds):
         batch = bounds.shape[0]
-        assert batch % batch_tile == 0, "batch must be a multiple of batch_tile"
-        bounds_slab = jnp.broadcast_to(
-            bounds.astype(dtype)[:, None], (batch, Nm)
-        )
-        U_base = jnp.broadcast_to(
-            U_base_cols[:, None, :], (p1, batch, Nm)
-        )
-
-        grid = (batch // batch_tile,)
-        U = pl.pallas_call(
-            kernel,
-            grid=grid,
-            interpret=interpret,
-            in_specs=[
-                pl.BlockSpec((batch_tile, Nm), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((p1, batch_tile, Nm), lambda i: (0, i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((Nm, Nm), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((Nm, Nm), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((p1, batch_tile, Nm), lambda i: (0, i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((p1, batch, Nm), dtype),
-        )(bounds_slab, U_base, W_hi, W_lo)
-
+        U = solve_padded(bounds)[:p1, :batch, :Nm]
         U = jnp.transpose(U, (1, 2, 0))  # (batch, Nm, p1)
         du = U[:, :, 0]
         phi_u = jnp.concatenate(
@@ -455,4 +451,5 @@ def make_pallas_sls_admm(
         )
         return du, phi_u, U
 
+    solve.padded = solve_padded
     return solve

@@ -21,7 +21,7 @@ and composition (eliminating the middle state) is associative:
 
 This is the genuine "sequence parallelism" of this problem domain
 (SURVEY §5): for long horizons / small batches the scan's O(N) latency is
-replaced by O(log N) rounds of batched d×d solves on the MXU.
+replaced by O(log N) rounds of batched d×d solves.
 
 Produces the same `DPGains` as `riccati.lqt_backward` (value functions →
 per-step gain extraction is embarrassingly parallel).
@@ -67,8 +67,7 @@ def _minor_det(M, r, c, n):
 def inv_small(M):
     """Closed-form (adjugate) batched inverse for trailing dim <= 4.
 
-    ~3.4x faster than `jnp.linalg.solve` inside TPU scan loops (no LU),
-    at adjugate accuracy: relative error ~ eps * cond(M) in f32 — use
+    No LU inside scan loops, at adjugate accuracy: relative error ~ eps * cond(M) in f32 — use
     only when cond(M) ≲ 1e4 (LU keeps ~eps * cond^0.5-1 with pivoting).
     A per-matrix scalar scaling guards the determinant against f32
     overflow without changing the cancellation structure.
@@ -96,13 +95,13 @@ def inv_small(M):
 
 
 def _bmm(a, b):
-    """Batched tiny matmul as a broadcast-multiply-sum (VPU, exact f32).
+    """Batched tiny matmul as a broadcast-multiply-sum (exact f32).
 
-    For trailing dims <= 4 this beats `dot_general` twice over when the
-    surrounding program traces under default_matmul_precision('highest'):
-    XLA lowers tiny batched HIGHEST matmuls pathologically (measured
-    507 ms vs 7 ms for a whole N=5000 backward pass), and the expanded
-    form is single-pass exact f32 instead of multi-pass bf16.
+    For trailing dims <= 4 the surrounding program traces under
+    default_matmul_precision('highest'), and XLA can lower tiny batched
+    HIGHEST matmuls pathologically; the expanded form is exact f32
+    elementwise code. (GPU comparison against `dot_general`: not
+    measured.)
     """
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 
@@ -141,8 +140,7 @@ def _combine(e1, e2, fast_inverse: bool = False):
 def _blocked_suffix_scan(combine, identity, elems, N, block_size):
     """Inclusive suffix scan result[t] = e_t ∘ e_{t+1} ∘ … ∘ e_{N-1} via a
     two-level blocked algorithm: O(N) total combines (vs the associative
-    scan's O(N log N)) with all the sequential steps batched block-wide
-    on the MXU.
+    scan's O(N log N)) with all the sequential steps batched block-wide.
 
     combine(earlier, later) must broadcast over leading batch dims;
     identity(shape_prefix) builds identity elements. elems: pytree tuple
@@ -218,9 +216,10 @@ def lqt_backward_parallel(
     """LQT Riccati via associative scan. Same contract as `lqt_backward`.
 
     fast_inverse=True replaces the combine's LU solve with the
-    closed-form adjugate `inv_small` — ~2x faster end-to-end scans, at
-    adjugate accuracy (rel err ~ eps * cond(I + C J); fine for
-    moderately-weighted problems, avoid at extreme stiffness).
+    closed-form adjugate `inv_small` — cheaper combines (the end-to-end
+    gain on the GPU is not measured), at adjugate accuracy (rel err ~
+    eps * cond(I + C J); fine for moderately-weighted problems, avoid
+    at extreme stiffness).
 
     block_size=None runs a flat `lax.associative_scan` (O(log N) depth,
     O(N log N) combines — best at short/moderate horizons). With
@@ -358,7 +357,7 @@ def gains_from_scanned(
 
     fast_inverse: batched adjugate inverses of the (m, m) Quu blocks
     (m <= 4) instead of per-step Cholesky — at long horizons the batched
-    tiny-Cholesky is a bottleneck (~6 ms of the N=10k solve).
+    tiny-Cholesky can be the bottleneck.
 
     drift: the same (N, d) affine dynamics term passed to
     `value_elements_general` — shifts qu by B' J_{t+1} d_t."""
@@ -445,10 +444,8 @@ def ilqr_value_elements(A, B, Cts, cts, fast_inverse=False, drift=None):
 
     All prelude matmuls are broadcast-multiply-sums, NOT dot_general:
     callers trace under default_matmul_precision('highest'), and XLA
-    lowers inner-dim-2 batched HIGHEST matmuls catastrophically here
-    (measured 507 ms vs 7 ms for the whole N=5000 backward pass). The
-    expanded form runs exact f32 on the VPU — faster AND more accurate
-    than multi-pass bf16.
+    can lower inner-dim-2 batched HIGHEST matmuls pathologically. The
+    expanded form runs exact f32 elementwise.
 
     Returns (elems, U, s, A_t, Kc): feed (elems) to a suffix scan (local
     or mesh time-sharded), then `gains_from_scanned(A_t, B, U, s,
@@ -543,7 +540,7 @@ def _ilqr_backward_parallel_impl(
     )
     # materialize the scan elements: without this barrier XLA fuses the
     # completion-of-squares prelude INTO the scan body and recomputes it
-    # per step — measured 507 ms vs 6.5 ms at N=5000 (d=4 car) on TPU
+    # per step (its cost on the GPU: not measured)
     elems = lax.optimization_barrier(elems)
     comb = functools.partial(_combine, fast_inverse=fast_inverse)
     if block_size is None:

@@ -1,6 +1,6 @@
 """Riccati backward passes as `lax.scan` recursions.
 
-TPU-native replacements for the reference's per-timestep Python loops:
+Device-side replacements for the reference's per-timestep Python loops:
 
 - `lqt_backward`      ⇔ `SLS.solve_dp` (reference `sls.py:85-166`)
 - `lqt_backward_ff`   ⇔ `SLS.solve_dp_ff` (reference `sls.py:168-202`) —
@@ -203,7 +203,7 @@ def ilqr_backward(
         else:
             At, Bt, Ct, ct, ft = inp
             # DDP term: contract next-stage value gradient with the
-            # dynamics Hessian (one small einsum on the VPU per step).
+            # dynamics Hessian (one small einsum per step).
             T = jnp.einsum("i,ijk->jk", v, ft)
         Cxx = Ct[:d, :d]
         Cuu = Ct[d:, d:]

@@ -30,8 +30,8 @@ def rollout_linear(
     """Open-loop linear rollout: returns xs (N, x_dim), xs[0] = x0.
 
     unroll > 1 unrolls the scan body (identical math/order; cuts the
-    ~1 us/step TPU scan-dispatch latency that dominates small-state
-    rollouts — see `rollout_nonlinear`)."""
+    per-step loop overhead that dominates small-state rollouts — see
+    `rollout_nonlinear`)."""
     def step(x, inp):
         if ws is None:
             At, Bt, ut = inp
@@ -53,7 +53,7 @@ def rollout_nonlinear(
     """Open-loop nonlinear rollout with f(x, u) -> x_next (single sample).
 
     unroll > 1 unrolls the scan body: bit-identical results, but the
-    per-step scan dispatch latency (~1 us on TPU) stops dominating
+    per-step loop overhead stops dominating
     small-state rollouts — the iLQR-ADMM line-search rollouts at N=500
     are the motivating hot path."""
     def step(x, inp):
@@ -96,10 +96,10 @@ def rollout_closed_loop(
             w = 0.0
         else:
             Kt, kt, xnt, unt, w = inp
-        # expanded matvec: exact f32 on the VPU (TPU dot_general is
-        # multi-pass bf16 even at HIGHEST; K rows reach 1e3-scale on
-        # stiff problems, so the 1e-6-relative noise feeds visible
-        # control perturbations into the line-search rollouts)
+        # expanded matvec: exact elementwise f32 whatever precision the
+        # backend gives small dot_generals (K rows reach 1e3-scale on
+        # stiff problems, so product noise feeds visible control
+        # perturbations into the line-search rollouts)
         u = jnp.sum(Kt * (x - xnt)[None, :], axis=-1) + kt + unt
         return f(x, u) + w, (x, u)
 

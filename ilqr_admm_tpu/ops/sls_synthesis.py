@@ -6,14 +6,14 @@ principal submatrix `l_side[i·u:, i·u:]` of the lifted normal matrix
 (`base.py:32-53`), then solves one feedback column block per timestep
 (`sls.py:205-233`). That is a sequential chain of N dense inverses.
 
-TPU-native redesign: the trailing principal submatrices of `l_side` are
+Batched redesign: the trailing principal submatrices of `l_side` are
 the *leading* principal submatrices of the index-reversed matrix
 `l_rev = l_side[::-1, ::-1]`. One Cholesky `Lr = chol(l_rev)` therefore
 factors *all* N trailing systems at once: triangular forward substitution
 with `Lr` restricted to the first s rows/cols is exactly the factor of
 `l_rev[:s, :s]`. Each per-timestep solve becomes a pair of masked
 triangular solves with the single shared factor — one O(M^3/3) Cholesky
-plus batched MXU-friendly triangular solves, instead of N sequential
+plus batched triangular solves, instead of N sequential
 Woodbury updates.
 
 Masking argument (why one shared factor is sound):

@@ -46,14 +46,12 @@ def _sqrt_psd(M):
 
 
 def _mm(a, b):
-    """Exact-f32 small matmul: broadcast-multiply-sum on the VPU.
+    """Exact-f32 small matmul: elementwise broadcast-multiply-sum.
 
-    TPU lowers even HIGHEST-precision dot_generals to multi-pass bf16
-    on the MXU (~1e-6 relative vs f32 FMA's ~1e-7); at the stiff arm
-    weights the 6x noise difference in the backward's linear-term
-    accumulation was the entire f32 TPU-vs-CPU quality gap (k error 13.2
-    vs 2.25 at the init nominal, k norm 1339). The expanded form is
-    single-pass exact f32 and these blocks are tiny (d <= 9)."""
+    Independent of how the backend lowers small dot_generals (a
+    reduced-precision pass adds noise to the backward's linear-term
+    accumulation at the stiff arm weights). The expanded form is
+    exact f32 and these blocks are tiny (d <= 9)."""
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 
 
@@ -63,13 +61,12 @@ def _mv(a, v):
 
 
 def _qr_r(Ain):
-    """Householder QR, R factor only, in plain f32 VPU arithmetic.
+    """Householder QR, R factor only, in plain elementwise f32.
 
-    TPU's `jnp.linalg.qr` custom lowering is ~2.3x noisier than CPU f32
-    on the arm's stiff pre-arrays (measured per-step K err 2.4e-2 vs
-    1.2e-2 against an f64 oracle) — enough, accumulated over the scan,
-    to stall the f32 arm solve 5% above the optimum. Unrolled
-    Householder with broadcast-multiply-sum updates is exact f32; the
+    Independent of the backend's `jnp.linalg.qr` lowering, whose noise
+    on the arm's stiff pre-arrays, accumulated over the scan, can stall
+    the f32 arm solve above the optimum. Unrolled Householder with
+    broadcast-multiply-sum updates is exact f32; the
     pre-arrays are tiny ((m + 2d) x (m + d)), so the static unroll over
     columns is cheap under jit."""
     Mrows, n = Ain.shape
@@ -84,7 +81,7 @@ def _qr_r(Ain):
         v = x.at[0].add(-alpha)
         vnorm = jnp.sqrt(jnp.sum(v * v))
         v = jnp.where(vnorm > eps, v / jnp.maximum(vnorm, eps), jnp.zeros_like(v))
-        # R[j:, j:] -= 2 v (v' R[j:, j:])  (rank-1, exact f32 on VPU)
+        # R[j:, j:] -= 2 v (v' R[j:, j:])  (rank-1, exact f32)
         tail = R[j:, j:]
         w = jnp.sum(v[:, None] * tail, axis=0)
         R = R.at[j:, j:].set(tail - 2.0 * v[:, None] * w[None, :])
@@ -94,9 +91,8 @@ def _qr_r(Ain):
 def _solve_upper(U, rhs):
     """Unrolled upper-triangular solve U x = rhs, rhs (m, k).
 
-    TPU's `solve_triangular` custom call runs ~4x noisier than f32 FMA
-    (measured 5.8e-7 vs 1.5e-7 relative on the arm pre-arrays); the
-    unrolled back-substitution is exact f32 on the VPU. m is tiny
+    Independent of the backend's `solve_triangular` lowering; the
+    unrolled back-substitution is exact f32. m is tiny
     (control dim), so the Python loop is fine under jit."""
     m = U.shape[0]
     rows = [None] * m
@@ -162,18 +158,16 @@ def ilqr_backward_sqrt(
     S_term = _sqrt_psd(Cts[-1][:d, :d])  # V = S S^T
     v_term = cts[-1][:d]
 
-    # Three-phase structure (TPU precision/latency split, r4):
+    # Three-phase structure (precision/latency split):
     #   1. factor chain — sequential scan propagating S via the native
-    #      `jnp.linalg.qr` X22 block (its FACTOR is accurate on TPU;
-    #      only its gain extraction is noisy — measured per-step K err
-    #      2.4e-2 vs 1.2e-2 CPU against an f64 oracle), emitting S_{t+1}
-    #      per step;
+    #      `jnp.linalg.qr` X22 block (its FACTOR is accurate; only its
+    #      gain extraction can be noisy), emitting S_{t+1} per step;
     #   2. gain extraction — the same pre-arrays re-factored by the
     #      exact-f32 Householder `_qr_r`, VMAPPED over all steps at once
     #      (independent given the S-chain): accuracy of the slow
     #      unrolled-in-scan variant at batched speed;
     #   3. linear chain — trivial sequential scan for (v, k) using the
-    #      accurate gains (VPU matvecs).
+    #      accurate gains (elementwise matvecs).
 
     def factor_step(S, inp):
         At, Bt, Cuu_h, Cxx_h = inp

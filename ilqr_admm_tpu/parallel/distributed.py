@@ -1,19 +1,20 @@
 """Multi-host orchestration helpers (JAX multi-controller SPMD).
 
-The reference is single-process (SURVEY §2.3); the TPU-native scale-out
-story is standard JAX SPMD: every host runs the same program,
-`jax.distributed.initialize` wires the runtime, the global mesh spans
-all chips, and the instance axis shards across hosts over DCN while
-per-shard compute and `psum` reductions ride ICI within each slice.
+The reference is single-process (SURVEY §2.3); the scale-out story is
+standard JAX SPMD. On one host, one process drives all its GPUs (four
+NVLink-joined cards, all to all) and needs none of this module. Across
+hosts, every host runs the same program, `jax.distributed.initialize`
+wires the runtime, the global mesh spans every card, and the instance
+axis shards across hosts while `psum` reductions ride NCCL.
 
 Collective traffic in this problem class is tiny relative to compute
 (duals are O(N·d) per instance), so scaling efficiency is a
 batching/occupancy problem, not a bandwidth one (SURVEY §5).
 
-Usage on a pod slice (same script on every host):
+Usage on several hosts (same script on every host):
 
     from ilqr_admm_tpu.parallel import distributed, make_mesh
-    distributed.initialize()          # no-op on single host
+    distributed.initialize("host0:1234", num_processes=2, process_id=i)
     mesh = make_mesh()                # spans all global devices
     ...
     # host-local shard of the instance batch:
@@ -34,19 +35,16 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> bool:
-    """Initialize the multi-controller runtime; no-op when single-host.
+    """Initialize the multi-controller runtime; no-op when single-process.
 
-    With no arguments, relies on the TPU environment's auto-detection
-    (GKE / TPU VMs set the coordinator env vars). Returns True when a
-    multi-process runtime was initialized.
+    Pass the coordinator address ("host:port"), the number of processes
+    and this process's id — nothing on a GPU host detects a cluster by
+    itself. `JAX_NUM_PROCESSES` stands in for `num_processes`. Returns
+    True when a multi-process runtime was initialized.
     """
     if num_processes is None and "JAX_NUM_PROCESSES" in os.environ:
         num_processes = int(os.environ["JAX_NUM_PROCESSES"])
-    multi_env = (
-        coordinator_address is not None
-        or (num_processes or 1) > 1
-        or os.environ.get("TPU_WORKER_HOSTNAMES", "").count(",") >= 1
-    )
+    multi_env = coordinator_address is not None or (num_processes or 1) > 1
     if not multi_env:
         return False
     try:

@@ -6,7 +6,8 @@ iLQR-ADMM problem instances (multi-start, scenario sampling, MC
 validation) with no cross-instance communication except metric
 reductions. Mesh axes:
 
-- 'data'      : problem instances, sharded across chips/hosts (ICI/DCN);
+- 'data'      : problem instances, sharded across devices (NVLink-joined
+                cards of one host, or several hosts);
 - 'consensus' : optional second axis for consensus-ADMM constraint blocks
                 and SLS column blocks.
 

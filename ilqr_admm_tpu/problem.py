@@ -72,11 +72,11 @@ class QuadCost:
         xs: (..., N, x_dim); us: (..., N, u_dim). Returns (...,).
         """
         # Expanded broadcast-multiply-sum quadratic forms: cost drives
-        # line-search accept decisions, and on TPU even HIGHEST einsum
-        # lowers to multi-pass bf16 (~1e-6 relative) — at stiff weights
-        # (arm: 1e6) that is 1e-4-scale noise on candidate comparisons,
-        # enough to stall the f32 arm solve. The expanded form is
-        # single-pass exact f32 on the VPU (dims here are tiny).
+        # line-search accept decisions, and at stiff weights (arm: 1e6)
+        # product noise from a reduced-precision einsum lowering is
+        # 1e-4-scale on candidate comparisons, enough to stall the f32
+        # arm solve. The expanded form is exact elementwise f32 (dims
+        # here are tiny).
         dx = xs - self.xd
         Qdx = jnp.sum(self.Q * dx[..., :, None, :], axis=-1)
         Rus = jnp.sum(self.R * us[..., :, None, :], axis=-1)

@@ -1,6 +1,6 @@
 """Primitive Euclidean projection operators — branchless, batched, jit-safe.
 
-TPU-native re-design of the reference projection catalog
+Accelerator re-design of the reference projection catalog
 (`isls/projections.py`): every operator is written with `jnp.where`
 masks (no boolean indexing / data-dependent branches), works on a single
 vector or any leading batch shape, and composes with `vmap`/`jit`.

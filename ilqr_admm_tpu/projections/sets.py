@@ -1,6 +1,6 @@
 """Intersection and affine-preimage projections (inner ADMM / Dykstra).
 
-TPU-native equivalents of the reference's composite projections:
+Device-side equivalents of the reference's composite projections:
 - `project_soc`              ⇔ `projections.py:163-234` — projection onto
   {z : Az + b ∈ SOC} by a bounded-iteration scaled ADMM.
 - `project_set_convex`       ⇔ `projections.py:289-374` — consensus ADMM

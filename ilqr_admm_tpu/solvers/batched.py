@@ -1,15 +1,15 @@
-"""GEMM-formulated batched LQT-ADMM — the TPU throughput path.
+"""GEMM-formulated batched LQT-ADMM — the XLA throughput path.
 
 Observation: with the lifted operators prefactored, every ADMM iteration
 of the constrained LQT is two dense matmuls plus elementwise projections:
 
-    u = (r_side + x_reg W_x + u_reg W_u) @ l_inv^T      (MXU)
-    x = free + u @ Su^T                                  (MXU)
-    z/λ updates, projections                             (VPU, fused)
+    u = (r_side + x_reg W_x + u_reg W_u) @ l_inv^T      (GEMM)
+    x = free + u @ Su^T                                  (GEMM)
+    z/λ updates, projections                             (elementwise, fused)
 
-so a *batch* of instances maps onto the MXU as (batch, N·m) GEMMs with
-shared operators — no per-timestep scans in the hot loop at all. This is
-the TPU-native redesign of both reference ADMM paths (`sls.py:252-317`):
+so a *batch* of instances maps onto (batch, N·m) GEMMs with shared
+operators — no per-timestep scans in the hot loop at all. This is the
+batched redesign of both reference ADMM paths (`sls.py:252-317`):
 the Riccati-DP x-update's O(N) sweep is replaced by a precomputed
 closed-loop affine response, mathematically identical to the prefactored
 lifted solve.
@@ -30,10 +30,11 @@ from jax import lax
 
 from ilqr_admm_tpu.ops.lifted import build_Su, build_Sx
 
-# ADMM iterates are sensitive to matmul precision: on TPU the default
-# f32 matmul lowering loses enough accuracy to stall convergence, so the
-# hot GEMMs pin HIGHEST (full-f32-equivalent) precision — measured ~12%
-# slower and 2x more accurate iterates at N=100.
+# ADMM iterates are sensitive to matmul precision: a reduced-precision
+# default f32 matmul (TF32 on the GPU) loses enough accuracy to stall
+# convergence, so the hot GEMMs pin HIGHEST (IEEE f32) precision — the
+# plain reference path. Whether a cheaper preset passes the oracle gates
+# is open (ROADMAP).
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -46,9 +47,8 @@ def _chol_solve_small(M, b):
 
     M: (..., n, n) SPD (n static, small — the Anderson gram), b: (..., n).
     Every operation is an elementwise broadcast over the leading batch
-    axes — `jnp.linalg.solve`'s batched LU lowers catastrophically on
-    TPU for thousands of tiny systems (measured: it alone made the
-    Anderson fleet path 80x slower than plain ADMM)."""
+    axes — `jnp.linalg.solve`'s batched LU can lower pathologically for
+    thousands of tiny systems."""
     n = M.shape[-1]
     L = [[None] * n for _ in range(n)]
     for i in range(n):
@@ -109,18 +109,18 @@ def make_batched_lqt_admm(
     instance carries its own secant memory over the batch axis (the
     (B, m, m) grams and extrapolations are batched contractions; the
     tiny per-instance gram solves are an unrolled batch-vectorized
-    Cholesky — `jnp.linalg.solve`'s batched LU is catastrophic on TPU),
-    restarts on residual increase independently, and each instance
-    returns its best-scoring plain evaluation (same certificate
-    discipline as `admm_solve`). SCOPE (measured, RESULTS.md r4): pays
-    off when plain ADMM's iteration count is large — tight-tolerance
-    f64 fleets (8x wall-clock at tol 1e-7, identical solutions) — and
-    does NOT pay on TPU f32 at serving tolerances, where plain
-    early-stop already converges in ~25 iterations and the secant
-    differences of near-converged instances drown in the TPU matmul
-    noise floor (the fleet then rides the iteration cap; the
+    Cholesky), restarts on residual increase independently, and each
+    instance returns its best-scoring plain evaluation (same certificate
+    discipline as `admm_solve`). SCOPE: pays off when plain ADMM's
+    iteration count is large — tight-tolerance f64 fleets (on the
+    CPU in f64, iterations to the same solution fell from 24-1,333 to
+    8-21; the time saved on the GPU is not measured,
+    `benchmarks/bench_fleet_anderson.py`). At
+    f32 serving tolerances plain early-stop needs few iterations and
+    the secant differences of near-converged instances approach the
+    matmul noise floor (the fleet can then ride the iteration cap; the
     best-iterate guarantee bounds, but does not repair, those
-    instances). Prefer plain early-stop for f32 TPU serving fleets.
+    instances). Prefer plain early-stop for f32 serving fleets.
     """
     validate_constraint_blocks(project_x, rho_x, project_u, rho_u)
     if anderson_m > 0 and tol <= 0.0:
@@ -138,12 +138,11 @@ def make_batched_lqt_admm(
     Qr = broadcast_rho(rho_x, d, N, dtype)
     Rr = broadcast_rho(rho_u, m, N, dtype)
 
-    # The one-time operator setup must run at HIGHEST precision too: on
-    # TPU the default single-pass-bf16 matmuls (eps ~ 8e-3) perturb
-    # l_inv/SuTQ enough that the ADMM converges tightly to the optimum of
-    # a *perturbed* problem — measured 4.4% median cost gap vs the f64
-    # oracle with default-precision setup, 1e-7 with pinned setup (the
-    # hot-loop _mm pinning alone does not fix it).
+    # The one-time operator setup must run at HIGHEST precision too:
+    # reduced-precision matmuls perturb l_inv/SuTQ enough that the ADMM
+    # converges tightly to the optimum of a *perturbed* problem (a
+    # percent-level cost gap vs the f64 oracle with a bf16-pass setup;
+    # the hot-loop _mm pinning alone does not fix it).
     with jax.default_matmul_precision("highest"):
         Su = build_Su(A, B)
         Sx = build_Sx(A).reshape(N * d, d)
@@ -295,11 +294,10 @@ def make_batched_lqt_admm(
             mem_dg_new = jnp.where(sel, mem_dg_p, jnp.where(rst, 0.0, mem_dg))
 
             # the secant gram/extrapolation contractions MUST run at
-            # HIGHEST precision: at the TPU default (single-pass bf16,
-            # eps ~ 8e-3) the gram of near-converged secant differences
-            # is pure noise -> garbage weights -> endless restarts
-            # (measured: the fleet sat at the iteration cap; CPU f32,
-            # true-FMA einsums, converged the same config fine)
+            # HIGHEST precision: at reduced precision the gram of
+            # near-converged secant differences is pure noise -> garbage
+            # weights -> endless restarts (the fleet sits at the
+            # iteration cap)
             gram = jnp.einsum("bmd,bnd->bmn", mem_dg_new, mem_dg_new,
                               precision=_PREC)
             tr = jnp.trace(gram, axis1=-2, axis2=-1)[:, None, None]
@@ -310,8 +308,8 @@ def make_batched_lqt_admm(
             )
             # near the dtype's residual floor the secant pairs are noise
             # and extrapolation chatters an instance around the tolerance
-            # forever (measured on TPU f32: a few such instances kept the
-            # whole fleet's while_loop at the iteration cap) — finish
+            # forever (in f32 a few such instances can keep the whole
+            # fleet's while_loop at the iteration cap) — finish
             # with plain steps below a machine-precision-scaled floor
             # (~1e-4·||v|| in f32, ~2e-13·||v|| in f64: irrelevant for
             # tight-tolerance f64 runs, which is where Anderson pays)

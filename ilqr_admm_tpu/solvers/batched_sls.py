@@ -76,12 +76,12 @@ def make_batched_sls_admm(
     if not (has_x or has_u):
         raise ValueError("at least one projection required")
 
-    # One-time operator SETUP must run at HIGHEST precision too: at the
-    # TPU default (single-pass bf16) the built l_inv/SuTQ describe a
-    # PERTURBED problem — the ADMM then converges tightly to the wrong
-    # optimum (measured r5: ~5e-3 relative cost gap vs the f64 QP
-    # oracle, flat in iteration count; pinned, the gap closes to the
-    # CPU-f32 level). Same lesson as solvers/batched.py setup.
+    # One-time operator SETUP must run at HIGHEST precision too: at
+    # reduced matmul precision the built l_inv/SuTQ describe a PERTURBED
+    # problem — the ADMM then converges tightly to the wrong optimum (a
+    # cost gap vs the f64 QP oracle that stays flat in iteration count;
+    # its size under the GPU's TF32 default is not measured). Same
+    # lesson as solvers/batched.py setup.
     with jax.default_matmul_precision("highest"):
         PHI_unc, _ = lqt_solve_sls(A, B, cost)
 

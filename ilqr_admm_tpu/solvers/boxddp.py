@@ -137,7 +137,7 @@ def boxddp_solve(
     on Quu (Tassa ICRA'14 schedule: multiply by `reg_factor` and retry,
     starting from max(reg, reg_min); divide back down on acceptance) —
     round 2 terminated on the FIRST failed line search, stalling the
-    N=500 car at cost 1.919 (TPU) / 3.17 (CPU) vs the 1.905 optimum.
+    N=500 car above the 1.905 optimum (3.17 on CPU).
     Termination is LINE_SEARCH_FAILED only once the regularization
     exceeds `reg_max`. Retry iterations count toward cfg.max_iter.
 
@@ -149,9 +149,8 @@ def boxddp_solve(
     vetted by a line search before the next. Higher mask_iters takes
     several unvetted set exchanges per backward, which changes the
     iteration PATH on nonconvex problems and can land in a different
-    local basin (measured on the N=500 car: mi=1 -> 1.90535 in 105 ms
-    on TPU vs the sequential pass's identical cost in 1091 ms; mi=2
-    converges — in f64 too, so not a precision artifact — to an
+    local basin (on the N=500 car: mi=1 -> 1.90535, the sequential
+    pass's cost; mi=2 converges — in f64 too, so not a precision artifact — to an
     alternate 1.975 basin). Late-r4 the backward returns the
     lowest-KKT-violation pass of the exchange iteration instead of the
     last, which bounds the damage of f32 set oscillation within one

@@ -1,7 +1,8 @@
 """iLQR: iterative LQR with DP (Riccati) or batch (lifted LS) inner solves.
 
 Functional equivalent of `iSLS.solve` / `iterate_once_dp` /
-`iterate_once_batch` (reference `isls.py:54-374`), redesigned for TPU:
+`iterate_once_batch` (reference `isls.py:54-374`), redesigned for
+batched device execution:
 
 - the Riccati backward pass is a `lax.scan` (`ops/riccati.py`);
 - the whole line-search grid is rolled out in one `vmap` (the reference

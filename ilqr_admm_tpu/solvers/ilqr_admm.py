@@ -67,7 +67,6 @@ def _ilqr_admm_impl(
     riccati: str = "chol",
     warm=None,  # optional (z_x, z_u, lmb_x, lmb_u) flattened warm start
     unroll: int = 8,
-    linesearch_rollout=None,
     line_search: str = "inner",
     anderson_m: int = 0,
 ) -> ILQRADMMResult:
@@ -82,15 +81,9 @@ def _ilqr_admm_impl(
     of squares).
 
     unroll: scan-unroll factor for the line-search rollouts — the inner
-    ADMM runs one N-step rollout batch per iteration, and on TPU the
-    ~1 us/step scan dispatch dominates at small state dims; unroll=8 is
-    bit-identical math at a fraction of the latency.
-
-    linesearch_rollout: optional fused candidate-rollout override
-    (batch method only): callable (x0 (d,), u_cands (A, N, m)) ->
-    xs (A, N, d), e.g. `ops/pallas_rollout.make_pallas_linesearch_rollout`
-    — the whole alpha batch rolled out in one VMEM-resident kernel
-    instead of a vmapped scan.
+    ADMM runs one N-step rollout batch per iteration, and per-step scan
+    overhead dominates at small state dims; unroll=8 is bit-identical
+    math with fewer loop steps.
 
     line_search ('inner' | 'outer', batch method only):
     'inner' is the reference semantics (`isls.py:456-478`) — every inner
@@ -178,12 +171,9 @@ def _ilqr_admm_impl(
             delta_u = cho_solve(cf, r_side + add_r).reshape(N, m)
 
             us_c = u_nom[None] + alphas[:, None, None] * delta_u[None]
-            if linesearch_rollout is not None:
-                xs_c = linesearch_rollout(x_nom[0], us_c)
-            else:
-                xs_c = jax.vmap(
-                    lambda us: rollout_nonlinear(f, x_nom[0], us, unroll=unroll)
-                )(us_c)
+            xs_c = jax.vmap(
+                lambda us: rollout_nonlinear(f, x_nom[0], us, unroll=unroll)
+            )(us_c)
             costs = jax.vmap(cost_fn)(xs_c, us_c)
             costs = jnp.where(jnp.isnan(costs), jnp.inf, costs)
             # augmented-cost candidate scoring (`isls.py:470-477`) —
@@ -203,11 +193,11 @@ def _ilqr_admm_impl(
             # Explicit inverse instead of per-iteration cho_solve: the
             # inner ADMM runs many rollout-free iterations whose only
             # heavy op is this solve, and a pair of serial triangular
-            # solves (single RHS) maps poorly onto the MXU where one
-            # one-time multi-RHS solve + a GEMV per iteration is cheap.
+            # solves (single RHS) is a latency chain where one one-time
+            # multi-RHS solve + a GEMV per iteration is cheap.
             # l_side is rho-regularized SPD and traced under HIGHEST, so
-            # the explicit inverse is accurate here (TPU f32 matches the
-            # CPU f64 oracle to 4 digits, bench_outer_ls.py).
+            # the explicit inverse is accurate here (f32 matches the CPU
+            # f64 oracle to 4 digits, bench_outer_ls.py).
             Minv = cho_solve(cf, jnp.eye(N * m, dtype=dtype))
 
         def f_argmin_lin(x, u):
@@ -233,12 +223,9 @@ def _ilqr_admm_impl(
             # cost plus penalties toward the final consensus targets
             delta_u = (x_u - u_nom_f).reshape(N, m)
             us_c = u_nom[None] + alphas[:, None, None] * delta_u[None]
-            if linesearch_rollout is not None:
-                xs_c = linesearch_rollout(x_nom[0], us_c)
-            else:
-                xs_c = jax.vmap(
-                    lambda us: rollout_nonlinear(f, x_nom[0], us, unroll=unroll)
-                )(us_c)
+            xs_c = jax.vmap(
+                lambda us: rollout_nonlinear(f, x_nom[0], us, unroll=unroll)
+            )(us_c)
             costs = jax.vmap(cost_fn)(xs_c, us_c)
             costs = jnp.where(jnp.isnan(costs), jnp.inf, costs)
             if Qr_l is not None:
@@ -421,8 +408,9 @@ def _ilqr_admm_dp(
 
 def ilqr_admm(*args, **kwargs) -> ILQRADMMResult:
     """See `_ilqr_admm_impl`. Traced under HIGHEST matmul precision —
-    the lifted solves are too ill-conditioned for the TPU's default
-    (bf16-pass) f32 matmuls (SURVEY §7 numerical-parity hard part)."""
+    the lifted solves are too ill-conditioned for reduced-precision
+    default f32 matmuls, e.g. TF32 on the GPU (SURVEY §7
+    numerical-parity hard part)."""
     with jax.default_matmul_precision("highest"):
         return _ilqr_admm_impl(*args, **kwargs)
 

@@ -246,8 +246,9 @@ def _isls_admm_impl(
 
 
 def isls_admm(*args, **kwargs) -> ISLSResult:
-    """See `_isls_admm_impl`. Traced under HIGHEST matmul precision (the
-    TPU default f32 matmul breaks the ill-conditioned lifted solves)."""
+    """See `_isls_admm_impl`. Traced under HIGHEST matmul precision (a
+    reduced-precision default f32 matmul, e.g. TF32 on the GPU, breaks
+    the ill-conditioned lifted solves)."""
     with jax.default_matmul_precision("highest"):
         return _isls_admm_impl(*args, **kwargs)
 

@@ -99,7 +99,7 @@ def lqt_solve_batch(A, B, cost: QuadCost, x0, use_qr: bool = False):
     equations: QR-factor G = [sqrt(Q) Su; sqrt(R)] and back-substitute —
     accuracy degrades with cond(G) rather than cond(G)^2 = cond(SuᵀQSu+R),
     which keeps stiff via-point weights (x_std/u_std ratios ≳ 1e4)
-    accurate in f32 on TPU (same trick as the ADMM x-update's `use_qr`,
+    accurate in f32 (same trick as the ADMM x-update's `use_qr`,
     `lqt_admm.py`).
 
     Returns (xs (N, d), us (N, m)).

@@ -49,7 +49,7 @@ def _lqt_admm_batch_impl(
     use_qr=True replaces the normal-equation Cholesky with a QR
     factorization of the stacked square-root system
     [sqrt(Q) Su; sqrt(R); sqrt(Qr) Su; sqrt(Rr)] — condition number
-    cond(G) instead of cond(G)^2, which keeps f32 (TPU) accuracy at the
+    cond(G) instead of cond(G)^2, which keeps f32 accuracy at the
     reference's stiff weight ratios (x_std up to 1e6; SURVEY §7 hard
     part). Slightly more setup cost; identical math.
     """
@@ -251,8 +251,8 @@ def _lqt_admm_dp_impl(
     rollout as exact affine operators of the ADMM targets (the composed
     map is linear — one `jacfwd` evaluates it exactly), so each ADMM
     iteration is a few matvecs instead of two O(N) scans: removes the
-    TPU scan-latency penalty of the per-iteration sweeps with bit-level
-    identical iterates. Set False for O(N) memory at very long horizons.
+    scan latency of the per-iteration sweeps with bit-level identical
+    iterates. Set False for O(N) memory at very long horizons.
 
     Returns (x_flat, u_flat, (K, k), info).
     """
@@ -323,7 +323,7 @@ def _lqt_admm_dp_impl(
 def _lqt_admm_dp_adaptive(
     A, B, cost, x0, project_x, project_u, Qr, Rr, cfg,
 ):
-    """Adaptive-rho DP x-update (VERDICT r1 #9: beyond the batch path).
+    """Adaptive-rho DP x-update (beyond the batch path).
 
     Residual-balancing rescales all penalties by the driver's rho_scale
     s, so the cached-gains/operator-form fast paths (which bake the

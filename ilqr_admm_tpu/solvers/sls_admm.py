@@ -4,7 +4,7 @@ Functional equivalent of `SLS.ADMM_SLS` (`sls.py:319-454`). The decision
 variable is the matrix [du | Phi_u[:, :p]] — feedforward plus the
 response-map columns w.r.t. the first p initial-state coordinates
 (robustness w.r.t. the initial-position block; reference `sls.py:357-358`)
-— so the x-update is a single multi-RHS prefactored solve (MXU matmul).
+— so the x-update is a single multi-RHS prefactored solve (one matmul).
 Residual norms are penalty-weighted (reference `sls.py:411-418`).
 """
 
@@ -131,7 +131,7 @@ def _sls_admm_impl(
     if cfg.adaptive_rho:
         # residual-balancing penalties scale the whole regularizer by the
         # driver's rho_scale s: refactor the (Nm, Nm) normal matrix each
-        # iteration (VERDICT r1 #9 — the robust-SLS x-update previously
+        # iteration (the robust-SLS x-update previously
         # errored under adaptive_rho)
         r_side0 = jnp.concatenate([r_side_ff[:, None], r_side_fb], axis=-1)
 

@@ -1,7 +1,7 @@
 """Solver-state checkpoint / resume.
 
 The reference never serializes state (SURVEY §5) — warm starts live in
-memory only. For long batched runs on TPU this module persists any solver
+memory only. For long batched runs this module persists any solver
 pytree (nominal trajectories, ADMM duals/slacks, penalties, gains) with
 orbax, falling back to a NumPy .npz archive when orbax is unavailable.
 """

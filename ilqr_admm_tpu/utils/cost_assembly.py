@@ -1,6 +1,6 @@
 """Cost assembly and small numeric utilities.
 
-TPU-native equivalents of the reference's `isls/utils.py` helpers:
+JAX equivalents of the reference's `isls/utils.py` helpers:
 via-point quadratic cost encoding (`find_precs` `utils.py:101-115`,
 `find_mus` `utils.py:95-99`), the n-th order integrator builder
 (`get_double_integrator_AB` `utils.py:266-276`), lifted-matrix helpers

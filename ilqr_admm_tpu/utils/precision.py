@@ -1,13 +1,15 @@
 """Matmul-precision policy.
 
-TPU f32 matmuls default to single-pass bf16 multiplication, which is
-catastrophic for this problem class (NaN Cholesky factors at the
-reference's 1e6 cost weights, diverging ADMM iterates — see
-docs/architecture.md §4). Every solver/op whose accuracy feeds a
-factorization, a recursion, or an accept/reject decision traces under
-HIGHEST precision via this decorator. Hot kernels that manage precision
-explicitly (bf16x3 in `ops/pallas_admm.py`, pinned `_mm` in
-`solvers/batched.py`) opt out deliberately.
+On the GPU an f32 matmul at default precision may run in TF32 on the
+tensor cores (10 mantissa bits, ~1e-3 relative), which is catastrophic
+for this problem class (NaN Cholesky factors at the reference's 1e6
+cost weights, diverging ADMM iterates, ADMM converging to the optimum
+of a perturbed problem — see docs/architecture.md §4). Every solver/op
+whose accuracy feeds a factorization, a recursion, or an accept/reject
+decision traces under HIGHEST precision (IEEE f32) via this decorator.
+Hot kernels that manage precision explicitly (the in-kernel product
+precision of `ops/pallas_admm.py`, pinned `_mm` in `solvers/batched.py`)
+opt out deliberately.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def highest_precision(fn):
 
 
 def use_x64():
-    """Enable float64 globally (works on TPU via emulation, ~10x slower).
+    """Enable float64 globally (native on the GPU, at a lower rate than f32).
 
     Required for weight ratios beyond ~1e7 (e.g. the 3DoF arm benchmark's
     x_std=1e6 / u_std=1e-4): no f32 formulation survives condition numbers

@@ -1,6 +1,6 @@
 // Native runtime: planar-chain kinematics + LQT Riccati reference.
 //
-// TPU-native counterpart of the reference's only native dependency —
+// Host-side counterpart of the reference's only native dependency —
 // Pinocchio (C++ rigid-body kinematics, SURVEY §2.2): an n-link planar
 // revolute chain FK / world-aligned translational Jacobian, batched for
 // host-side Monte-Carlo validation, plus an independent C++ LQT Riccati

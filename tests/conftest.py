@@ -2,32 +2,44 @@
 
 Tests run on CPU (per the multi-host test strategy, SURVEY §4): an
 8-device virtual platform validates the sharding/mesh code paths without
-TPU hardware, and float64 gives tight numeric oracles against the math.
+accelerator hardware, and float64 gives tight numeric oracles against
+the math.
+
+The one exception is the card-only selection, `python -m pytest -o
+addopts="" -m gpu tests/` (README): it runs the tests marked `gpu` on
+the GPU, which skip anywhere else (`gpu` fixture).
 """
 
 import os
+import sys
 
-os.environ["JAX_PLATFORMS"] = "cpu"
-_flags = os.environ.get("XLA_FLAGS", "")
-if "xla_force_host_platform_device_count" not in _flags:
-    os.environ["XLA_FLAGS"] = (_flags + " --xla_force_host_platform_device_count=8").strip()
+_CARD_RUN = any(
+    a == "-m" and b == "gpu" for a, b in zip(sys.argv, sys.argv[1:])
+)
+
+if not _CARD_RUN:
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    _flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in _flags:
+        os.environ["XLA_FLAGS"] = (
+            _flags + " --xla_force_host_platform_device_count=8"
+        ).strip()
 
 import jax  # noqa: E402
 
-# A pytest plugin may import jax before this conftest runs, in which case the
-# env var above is read too late; backends initialize lazily, so forcing the
-# platform through the config still works here.
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_enable_x64", True)
+if not _CARD_RUN:
+    # A pytest plugin may import jax before this conftest runs, in which
+    # case the env var above is read too late; backends initialize
+    # lazily, so forcing the platform through the config still works.
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
 
 # Persistent compile cache: the suite's long tail on a small box is XLA
 # CPU compile time (~140 jitted tests); with the cache warm a rerun skips
-# nearly all of it. CPU entries embed host-AOT machine code, so they get
-# their own directory fingerprinted by host CPU features (the repo —
-# cache included — migrates between machines across rounds; the loader
-# itself warns a feature mismatch "could lead to execution errors such
-# as SIGILL"). TPU entries stay in the shared .jax_cache used by
-# benchmarks.
+# nearly all of it. JAX_COMPILATION_CACHE_DIR wins when set. Otherwise
+# CPU entries, which embed host-AOT machine code, get their own
+# directory fingerprinted by host CPU features (the loader itself warns
+# a feature mismatch "could lead to execution errors such as SIGILL").
 import hashlib  # noqa: E402
 import platform  # noqa: E402
 
@@ -49,7 +61,7 @@ def _cpu_fingerprint() -> str:
 
 jax.config.update(
     "jax_compilation_cache_dir",
-    os.path.join(
+    os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache_cpu",
         _cpu_fingerprint(),
     ),
@@ -129,6 +141,16 @@ def _periodic_jax_cache_clear():
         jax.clear_caches()
 
 
+@_pytest.fixture
+def gpu():
+    """The GPU, for tests marked `gpu`; skips where JAX has none."""
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        _pytest.skip(f"needs a GPU (JAX found {dev.platform}); run on the "
+                     "card: python -m pytest -o addopts=\"\" -m gpu tests/")
+    return dev
+
+
 @_pytest.fixture(autouse=True)
 def _no_compile_cache_for_collective_tests(request):
     mod = getattr(request, "module", None)
@@ -141,8 +163,9 @@ def _no_compile_cache_for_collective_tests(request):
     else:
         yield
 
-assert jax.default_backend() == "cpu", "tests must run on the CPU backend"
-assert jax.device_count() >= 8, "tests expect an 8-device virtual CPU platform"
+if not _CARD_RUN:
+    assert jax.default_backend() == "cpu", "tests must run on the CPU backend"
+    assert jax.device_count() >= 8, "tests expect an 8-device virtual CPU platform"
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402

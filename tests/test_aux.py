@@ -55,7 +55,7 @@ def test_trajopt_interpolates_nodes():
 
 
 def test_trajopt_matches_reference_basis_golden():
-    """Pin the repo basis to the reference M/P/L construction (VERDICT r4 #7).
+    """Pin the repo basis to the reference M/P/L construction.
 
     Golden `Phi/dPhi/ddPhi` matrices were produced by executing the
     reference `TrajOpt` (`/root/reference/isls/utils.py:188-245`) once on

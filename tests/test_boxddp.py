@@ -302,7 +302,7 @@ class TestBoxQPEnum:
     def test_enum_f32_ill_scaled(self, rng):
         """boxqp_enum in f32 at realistic (ill-scaled) Quu magnitudes.
 
-        ADVICE r2: an absolute eps=1e-7 KKT tolerance in f32 can reject
+        An absolute eps=1e-7 KKT tolerance in f32 can reject
         every combo on large-magnitude Quu/gradients (arm-benchmark
         scales, x_std up to 1e6 weights), silently falling back to the
         all-free combo. The tolerance is now scale-relative; this pins

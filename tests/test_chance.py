@@ -1,6 +1,6 @@
 """Joint chance-constraint calibration API (`ilqr_admm_tpu.chance`).
 
-VERDICT r2 #5: the library (not a test helper) must turn a requested
+The library (not a test helper) must turn a requested
 *joint* confidence into per-row SOC data. Fast geometry/math tests here;
 the end-to-end MC validations live in test_sls_robust.py /
 test_isls_robust.py (slow).
@@ -167,7 +167,7 @@ class TestProjectionGeometry:
 
 def test_direct_alpha_row_must_exceed_half():
     """alpha_row <= 0.5 would give psi_inv <= 0 and silently sign-flip /
-    NaN the SOC sets built by soc_box_rows (ADVICE r3)."""
+    NaN the SOC sets built by soc_box_rows."""
     from ilqr_admm_tpu.chance import calibrate, make_box_chance_projection
 
     for bad in (0.5, 0.3, 0.0, -1.0):

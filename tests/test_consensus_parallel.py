@@ -1,7 +1,7 @@
 """Mesh-parallel consensus-ADMM block tests (SURVEY §2.3 row 4).
 
 The reference's `project_set_convex` (`projections.py:289-374`) loops
-over constraint blocks sequentially; the TPU build partitions the
+over constraint blocks sequentially; this build partitions the
 stacked (A_i, b_i) blocks over a ('consensus',) mesh axis with the
 consensus aggregate psum'd per iteration. Oracle chain:
 list form == stacked form == 8-device sharded form.

@@ -229,7 +229,7 @@ def test_isls_solve_stores_final_linearization():
 
 def test_compute_cost_shape_dispatch():
     """compute_cost accepts stacked/lifted, batched or not — including
-    the N=1 ambiguity where N*dim == dim (VERDICT r1 weak #7: the old
+    the N=1 ambiguity where N*dim == dim (the old
     last-dim heuristic dropped the batch axis there)."""
     rng = np.random.default_rng(0)
 

@@ -18,7 +18,7 @@ def test_dryrun_multichip_subprocess():
     out = subprocess.run(
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms','cpu');"
-         "import __graft_entry__ as g; g.dryrun_multichip(8); print('DRYRUN_OK')"],
+         "import __graft_entry__ as g; g.dryrun_multichip(8, interpret=True); print('DRYRUN_OK')"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
     )
     assert "DRYRUN_OK" in out.stdout, out.stdout + out.stderr

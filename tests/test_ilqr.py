@@ -158,8 +158,8 @@ def test_ilqr_batch_matches_dp_on_arm():
 def test_sqrt_riccati_solves_stiff_arm_in_f32():
     """Array-form (square-root) Riccati keeps the 1e10-weight-ratio arm
     benchmark solvable in f32; the Cholesky form cannot take a step
-    (measured on TPU: sqrt 0.0494 vs f64 truth 0.0468; chol stuck at the
-    initial cost). f32 arrays stay f32 under the x64 test config."""
+    (chol stuck at the initial cost; f64 truth 0.0468). f32 arrays stay
+    f32 under the x64 test config."""
     from ilqr_admm_tpu.ops.sqrt_riccati import ilqr_backward_sqrt
     from ilqr_admm_tpu.ops.riccati import ilqr_backward
 

@@ -56,7 +56,7 @@ def test_car_control_bounds():
     # SQP outer line search on the same problem: the HEADTOHEAD config
     # (bench_outer_ls.py variant D) — tighter golden AND tighter
     # feasibility than the inner mode (measured CPU f64: cost 1.9056,
-    # max violation 6e-6; TPU f32: 1.9054 / 6e-6)
+    # max violation 6e-6)
     res_o = ilqr_admm(
         car.step, car.get_AB, cost, x_nom0, u0,
         get_Cs=cost.get_Cs, project_u=proj_u, line_search="outer",
@@ -68,7 +68,7 @@ def test_car_control_bounds():
     # converged or detected-oscillating (not forward-pass failure): this
     # init needs ~84 of the 120 outer steps, so small numeric drift can
     # land on MAX_ITER; the cost/violation bounds below are the real
-    # oracle (ADVICE r2: don't pin the exact status)
+    # oracle (don't pin the exact status)
     from ilqr_admm_tpu.problem import SolveStatus
     assert int(res_o.status) in (
         int(SolveStatus.CONVERGED),

@@ -172,7 +172,7 @@ def test_isls_admm_anderson_smoke():
 
 @pytest.mark.slow
 def test_robust_isls_joint_calibrated():
-    """One-call joint chance calibration (VERDICT r2 #5): requesting
+    """One-call joint chance calibration: requesting
     joint_alpha = 0.958 (the reference's empirical joint regime, 3DoF
     robust c26) through `isls_admm(joint_alpha=..., u_bounds=...,
     x0_var=...)`. The default chi certificate sets

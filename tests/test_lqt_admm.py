@@ -634,7 +634,7 @@ def test_ilqr_unknown_method_raises():
 
 
 def test_adaptive_rho_dp_matches_fixed_solution():
-    """Adaptive-rho DP x-update (VERDICT r1 #9: previously errored) —
+    """Adaptive-rho DP x-update (previously errored) —
     reaches the fixed-rho constrained optimum."""
     from ilqr_admm_tpu.solvers.lqt_admm import lqt_admm_dp
 

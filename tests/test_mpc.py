@@ -183,8 +183,8 @@ def test_boxddp_mpc_parallel_backward_matches_seq():
 def test_constrained_mpc_sqp_tick_tracks_like_default():
     """line_search='outer' (SQP serving tick: rollout-free inner ADMM +
     one line search per outer step) must track the target with exactly
-    feasible applied controls, like the default dp tick — measured 4.7x
-    faster on TPU at identical tracking error (bench_mpc.py)."""
+    feasible applied controls, like the default dp tick, at identical
+    tracking error (its speed: bench_mpc.py)."""
     from ilqr_admm_tpu.projections import project_bound
     from ilqr_admm_tpu.solvers.mpc import (
         make_mpc_step_constrained, mpc_constrained_init,

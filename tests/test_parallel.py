@@ -1,6 +1,7 @@
 """Mesh-sharded instance-parallel solves on the 8-device virtual CPU mesh.
 
-Validates the multi-chip code path without TPU hardware (SURVEY §4): the
+Validates the multi-device code path without accelerator hardware
+(SURVEY §4): the
 same batched solve run (a) unsharded and (b) shard_map'ed over ('data',)
 must agree exactly, and psum MC reductions must equal host-side means.
 """

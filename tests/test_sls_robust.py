@@ -154,7 +154,7 @@ def test_robust_sls_vs_dp_chance_constraints():
 
 @pytest.mark.slow
 def test_joint_calibrated_one_call():
-    """One-call joint chance calibration (VERDICT r2 #5): requesting
+    """One-call joint chance calibration: requesting
     joint_alpha=0.95 through `sls_admm(joint_alpha=..., u_bounds=...,
     x0_var=...)` delivers >= 0.93 joint MC success on the state-bounds
     fixture (measured 0.9494 — the chi ball certificate is nearly tight
@@ -241,7 +241,7 @@ def test_sls_admm_control_bounds_unweighted_feasibility():
 
 
 def test_sls_admm_adaptive_rho_matches_fixed():
-    """Adaptive-rho robust-SLS x-update (VERDICT r1 #9: previously
+    """Adaptive-rho robust-SLS x-update (previously
     errored) — recovers the fixed-rho robust solution from a 100x-off
     penalty."""
     plant = DoubleIntegrator(1, 2, dt=0.01)
